@@ -1,0 +1,514 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each; the first failure ends the run with a non-zero
+exit code:
+
+1. device  — the card (``nvidia-smi`` name and power limit), torch, CUDA.
+2. build   — both CUDA kernels compiled from the repository's sources.
+3. kernels — each kernel against its plain PyTorch version on the card, at
+   the main path's full-width shapes (H=32, KV=4, hd=64, block 16), ragged
+   context lengths up to 1024, prompt lengths that are not multiples of
+   16 or 128, Sq=1, a window case and a softcap case, with the JAX kernel
+   tests' bars: paged 1e-5 (f32), flash 2e-5 (f32), both 2e-2 (bf16).
+4. serve   — the main path: full-width TinyLlama-1.1B (random f32 weights
+   from a seeded generator) served by ``ContinuousEngine(paged=True,
+   impl="kernel")`` for 8 staggered requests, every request checked
+   against ``Engine(impl="plain")`` at B=1.  Launch counters are zeroed
+   just before the run and must read n_layers per prefill (flash) and per
+   decode step (paged).  A reduced model on small inputs is checked the
+   same way first.
+5. timing  — the same trace in bf16: tokens/s, mean decode step and
+   prefill, peak memory, and each kernel's time per launch at the main
+   path's shapes beside its plain version, its bound and, for flash, one
+   ``scaled_dot_product_attention`` call (a yardstick; the port never
+   calls it).  A repeat of the trace under ``torch.profiler`` gives device
+   time by kernel name and the device's busy share.
+
+Then the ``{"kernels": [...]}`` summary line, the card's
+``name, power.limit`` line, and last ``{"ok": true, "device": ...}``.
+Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of device memory and
+989 TFLOP/s of dense bf16 tensor-core math.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+ARCH = "tinyllama-1.1b"
+PROMPT_LENS = (17, 200, 45, 131, 77, 163, 29, 111)
+MAX_NEW = 32
+KV_LEN = 512
+N_SLOTS = 4
+BLOCK = 16
+STAGGER = 2
+MARGIN = 1e-3
+TOL = {("paged", "float32"): 1e-5, ("flash", "float32"): 2e-5,
+       ("paged", "bfloat16"): 2e-2, ("flash", "bfloat16"): 2e-2}
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean milliseconds per call, by CUDA events around ``iters`` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# -- kernel inputs ------------------------------------------------------------
+
+def paged_inputs(gen, dev, dtype, B, H, KV, hd, bs, max_blocks, lens):
+    import torch
+    n_pages = B * max_blocks + 1
+    q = torch.randn((B, H, hd), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((n_pages, bs, KV, hd), generator=gen,
+                     device=dev).to(dtype)
+    vp = torch.randn((n_pages, bs, KV, hd), generator=gen,
+                     device=dev).to(dtype)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev)
+    tables = perm[:B * max_blocks].reshape(B, max_blocks).to(torch.int32)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kp, vp, tables, lens
+
+
+def flash_inputs(gen, dev, dtype, B, Sq, Skv, H, KV, hd):
+    import torch
+    q = torch.randn((B, Sq, H, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, Skv, KV, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, Skv, KV, hd), generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def phase_kernels(dev) -> dict:
+    """Each kernel against its plain version; returns the worst error per
+    kernel at the main path's full-width f32 shapes."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    rows = []
+    main_err = {"paged_attention": 0.0, "flash_attention": 0.0}
+    paged_cases = [
+        # name, B, H, KV, hd, bs, max_blocks, lens, window, softcap
+        ("main", 4, 32, 4, 64, 16, 64, [1, 17, 500, 1024], 0, 0.0),
+        ("main_trace", 4, 32, 4, 64, 16, 32, [18, 201, 46, 132], 0, 0.0),
+        ("window", 4, 32, 4, 64, 16, 64, [3, 77, 600, 1024], 100, 0.0),
+        ("softcap", 4, 32, 4, 64, 16, 64, [9, 260, 511, 1000], 0, 30.0),
+        ("hd16", 3, 4, 2, 16, 16, 8, [1, 50, 128], 0, 0.0),
+        ("hd128", 2, 8, 1, 128, 16, 16, [33, 256], 0, 0.0),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for name, B, H, KV, hd, bs, mb, lens, win, cap in paged_cases:
+            q, kp, vp, tbl, ln = paged_inputs(gen, dev, dtype, B, H, KV, hd,
+                                              bs, mb, lens)
+            got = pa_ops.paged_attention(q, kp, vp, tbl, ln, window=win,
+                                         logit_softcap=cap)
+            torch.cuda.synchronize()
+            exp = pa_ref.reference(q[:, None], kp, vp, tbl, ln,
+                                   q_positions=(ln - 1)[:, None],
+                                   window=win, logit_softcap=cap)[:, 0]
+            err = (got.float() - exp.float()).abs().max().item()
+            tol = TOL[("paged", dname)]
+            rows.append({"kernel": "paged_attention", "case": name,
+                         "dtype": dname, "max_abs_err": err, "tol": tol,
+                         "ok": err < tol})
+            if dname == "float32" and name.startswith("main"):
+                main_err["paged_attention"] = max(
+                    main_err["paged_attention"], err)
+    flash_cases = [
+        # name, B, Sq, Skv, H, KV, hd, causal, window, softcap, empty_from
+        ("prefill_200", 1, 200, 200, 32, 4, 64, True, 0, 0.0, None),
+        ("prefill_17", 1, 17, 17, 32, 4, 64, True, 0, 0.0, None),
+        ("prefill_131_b2", 2, 131, 131, 32, 4, 64, True, 0, 0.0, None),
+        ("decode_sq1", 1, 1, 512, 32, 4, 64, True, 0, 0.0, 300),
+        ("window", 1, 200, 200, 32, 4, 64, True, 64, 0.0, None),
+        ("softcap", 1, 150, 150, 32, 4, 64, True, 0, 50.0, None),
+        ("hd16", 2, 37, 37, 4, 2, 16, True, 0, 0.0, None),
+        ("hd128_noncausal", 1, 70, 90, 8, 2, 128, False, 0, 0.0, None),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for (name, B, Sq, Skv, H, KV, hd, causal, win, cap,
+             empty_from) in flash_cases:
+            q, k, v = flash_inputs(gen, dev, dtype, B, Sq, Skv, H, KV, hd)
+            kpos = torch.arange(Skv, dtype=torch.int32, device=dev)
+            if empty_from is not None:     # dense decode: unwritten slots
+                kpos = torch.where(kpos < empty_from, kpos, -1)
+                qpos = torch.tensor([empty_from - 1], dtype=torch.int32,
+                                    device=dev)
+            else:
+                qpos = torch.arange(Skv - Sq, Skv, dtype=torch.int32,
+                                    device=dev)
+            got = fa_ops.flash_attention(q, k, v, q_positions=qpos,
+                                         k_positions=kpos, causal=causal,
+                                         window=win, logit_softcap=cap)
+            torch.cuda.synchronize()
+            exp = fa_ref.reference(q, k, v, q_positions=qpos,
+                                   k_positions=kpos, causal=causal,
+                                   window=win, logit_softcap=cap)
+            err = (got.float() - exp.float()).abs().max().item()
+            tol = TOL[("flash", dname)]
+            rows.append({"kernel": "flash_attention", "case": name,
+                         "dtype": dname, "max_abs_err": err, "tol": tol,
+                         "ok": err < tol})
+            if dname == "float32" and name.startswith(("prefill", "decode")):
+                main_err["flash_attention"] = max(
+                    main_err["flash_attention"], err)
+    emit("kernels", cases=rows)
+    bad = [r for r in rows if not r["ok"]]
+    check(not bad, f"kernels disagree with their plain versions: {bad}")
+    return main_err
+
+
+# -- serving ------------------------------------------------------------------
+
+def make_prompts(cfg, dev, seed: int) -> list:
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                          device=dev).tolist() for n in PROMPT_LENS]
+
+
+def serve_trace(cfg, params, prompts, dev, dtype, max_new=MAX_NEW):
+    from repro_torch.serve import ContinuousEngine
+    eng = ContinuousEngine(cfg, params, kv_len=KV_LEN, n_slots=N_SLOTS,
+                           block_size=BLOCK, paged=True, impl="kernel",
+                           dtype=dtype, device=dev)
+    for i, p in enumerate(prompts):
+        eng.submit(p, max_new, rid=i, arrival=i * STAGGER)
+    return eng, eng.run()
+
+
+def hold_against_plain(cfg, params, prompts, results, dev, dtype,
+                       max_new=MAX_NEW) -> list:
+    """Per request: the kernel engine's tokens against the plain B=1
+    engine's.  Identical, or at the first divergence the plain path's
+    top-two logit margin must be under MARGIN (a near tie that rounding
+    may flip either way)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine
+    plain = Engine(cfg, params, kv_len=KV_LEN, dtype=dtype, impl="plain",
+                   device=dev)
+    rows = []
+    for rid, p in enumerate(prompts):
+        ref = plain.generate(torch.tensor([p], device=dev),
+                             max_new)[0].tolist()
+        got = results[rid]
+        check(len(got) == max_new, f"request {rid}: {len(got)} tokens")
+        div = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b),
+                   None)
+        row = {"rid": rid, "prompt_len": len(p), "identical": div is None,
+               "divergence_index": div, "margin": None}
+        if div is not None:
+            seq = torch.tensor([p + ref[:div]], device=dev)
+            logits, _ = lm.forward(cfg, params, seq, mode="prefill",
+                                   impl="plain")
+            top2 = logits[0, -1, :cfg.vocab_size].float().topk(2).values
+            row["margin"] = (top2[0] - top2[1]).item()
+            row["ok"] = row["margin"] < MARGIN
+        else:
+            row["ok"] = True
+        rows.append(row)
+    return rows
+
+
+def phase_serve(dev) -> dict:
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models import lm
+
+    # a reduced model on small inputs first
+    small = configs.get(ARCH).reduced()
+    sgen = torch.Generator(device=dev).manual_seed(7)
+    sparams = lm.init_params(small, sgen, dev, torch.float32)
+    sprompts = make_prompts(small, dev, seed=8)[:4]
+    _, sres = serve_trace(small, sparams, sprompts, dev, torch.float32, 12)
+    srows = hold_against_plain(small, sparams, sprompts, sres, dev,
+                               torch.float32, 12)
+    emit("serve_reduced", requests=srows)
+    check(all(r["ok"] for r in srows), f"reduced model diverged: {srows}")
+
+    cfg = configs.get(ARCH)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen, dev, torch.float32)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    init_s = time.perf_counter() - t0
+    prompts = make_prompts(cfg, dev, seed=1)
+
+    pa_ops.paged_attention.launches = 0
+    fa_ops.flash_attention.launches = 0
+    eng, results = serve_trace(cfg, params, prompts, dev, torch.float32)
+    launches = {"paged_attention": pa_ops.paged_attention.launches,
+                "flash_attention": fa_ops.flash_attention.launches}
+
+    tel = eng.telemetry
+    decode_steps = sum(1 for s in tel.steps if s.active_slots)
+    prefills = sum(s.prefills for s in tel.steps)
+    expect = {"paged_attention": cfg.n_layers * decode_steps,
+              "flash_attention": cfg.n_layers * prefills}
+    rows = hold_against_plain(cfg, params, prompts, results, dev,
+                              torch.float32)
+    emit("serve", arch=cfg.name, dtype="float32", params=n_params,
+         init_seconds=init_s, requests=rows, prefills=prefills,
+         decode_steps=decode_steps, launches=launches,
+         expected_launches=expect)
+    check(prefills == len(prompts), f"{prefills} prefills")
+    check(launches == expect, f"launches {launches} != expected {expect}")
+    check(all(r["ok"] for r in rows), f"tokens diverged: {rows}")
+    eng.allocator.check()
+    check(eng.allocator.n_in_use == 0, "blocks leaked after the run")
+    return {"params": params, "prompts": prompts, "launches": launches,
+            "cfg": cfg}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def profile_serve(cfg, params, prompts, dev, untraced_wall: float) -> dict:
+    """The same bf16 trace once more under ``torch.profiler``: device time
+    by kernel name, the device's busy share of the traced and of the
+    untraced wall time, and the tracing overhead."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve_trace(cfg, params, prompts, dev, torch.bfloat16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def device_us(evt) -> float:
+        return float(getattr(evt, "self_device_time_total",
+                             getattr(evt, "self_cuda_time_total", 0.0)))
+
+    # kernel events only: the operator events that launched them carry
+    # the same device time again
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    busy_us = sum(device_us(e) for e in events)
+    top = sorted(events, key=device_us, reverse=True)[:12]
+    return {
+        "traced_wall_seconds": wall,
+        "tracing_overhead_seconds": wall - untraced_wall,
+        "device_busy_seconds": busy_us / 1e6,
+        "device_busy_share_traced": busy_us / 1e6 / wall,
+        # the kernels do the same work untraced, so this is the busy share
+        # of the run that was timed without the profiler
+        "device_busy_share_untraced": busy_us / 1e6 / untraced_wall,
+        "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                         "device_ms": device_us(e) / 1e3} for e in top],
+    }
+
+
+def phase_timing(dev, served: dict) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+
+    cfg, prompts = served["cfg"], served["prompts"]
+
+    def to_bf16(tree):
+        return {k: to_bf16(v) if isinstance(v, dict)
+                else v.to(torch.bfloat16) for k, v in tree.items()}
+
+    params = to_bf16(served["params"])
+    del served["params"]
+    torch.cuda.empty_cache()
+    serve_trace(cfg, params, prompts[:2], dev, torch.bfloat16, 4)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng, results = serve_trace(cfg, params, prompts, dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tel = eng.telemetry
+    n_tokens = sum(len(v) for v in results.values())
+    serve = {"tokens": n_tokens, "wall_seconds": wall,
+             "tokens_per_s": n_tokens / wall,
+             "mean_decode_step_ms": tel.mean_decode_step_ms(),
+             "mean_prefill_ms": tel.mean_prefill_ms(),
+             "max_memory_allocated_bytes":
+                 torch.cuda.max_memory_allocated(dev)}
+
+    serve["profile"] = profile_serve(cfg, params, prompts, dev, wall)
+
+    gen = torch.Generator(device=dev).manual_seed(99)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    bf = torch.bfloat16
+    # paged: one decode step of the trace's first four lanes, 16 tokens in
+    lens = [n + 16 for n in PROMPT_LENS[:N_SLOTS]]
+    q, kp, vp, tbl, ln = paged_inputs(gen, dev, bf, N_SLOTS, H, KV, hd,
+                                      BLOCK, KV_LEN // BLOCK, lens)
+    rows_used = sum(lens)
+    p_bytes = (2 * rows_used * KV * hd * 2 + 2 * q.numel() * 2
+               + sum(-(-n // BLOCK) for n in lens) * 4 + N_SLOTS * 4)
+    p_flops = 4 * rows_used * H * hd
+    paged = {
+        "shape": {"B": N_SLOTS, "H": H, "KV": KV, "hd": hd, "bs": BLOCK,
+                  "max_blocks": KV_LEN // BLOCK, "context_lens": lens,
+                  "dtype": "bfloat16"},
+        "ms": time_ms(lambda: pa_ops.paged_attention(q, kp, vp, tbl, ln)),
+        "plain_ms": time_ms(lambda: pa_ref.reference(
+            q[:, None], kp, vp, tbl, ln, q_positions=(ln - 1)[:, None])),
+        "bytes": p_bytes, "flops": p_flops, "library_ms": None,
+    }
+    # flash: one prefill of a trace prompt
+    S = PROMPT_LENS[3]
+    q, k, v = flash_inputs(gen, dev, bf, 1, S, S, H, KV, hd)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    f_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    f_flops = 4 * (S * (S + 1) // 2) * H * hd       # causal pairs only
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kt, vt = (x.repeat_interleave(H // KV, dim=1) for x in (kt, vt))
+    flash = {
+        "shape": {"B": 1, "Sq": S, "Skv": S, "H": H, "KV": KV, "hd": hd,
+                  "causal": True, "dtype": "bfloat16"},
+        "ms": time_ms(lambda: fa_ops.flash_attention(
+            q, k, v, q_positions=pos, k_positions=pos)),
+        "plain_ms": time_ms(lambda: fa_ref.reference(
+            q, k, v, q_positions=pos, k_positions=pos)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        "bytes": f_bytes, "flops": f_flops,
+    }
+    for row in (paged, flash):
+        t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = row["flops"] / BF16_FLOPS_PER_S * 1e3
+        row["bound_ms"] = max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    emit("timing", arch=cfg.name, dtype="bfloat16", serve=serve,
+         launches_bf16={"paged_attention": pa_ops.paged_attention.launches,
+                        "flash_attention": fa_ops.flash_attention.launches},
+         paged_attention=paged, flash_attention=flash)
+    return {"paged_attention": paged, "flash_attention": flash}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as exc:
+        print(f"chip_smoke: torch is not importable ({exc})", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: the port is missing under {SRC}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    phase = "device"
+    try:
+        smi = nvidia_smi()
+        emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
+             count=torch.cuda.device_count(), torch=torch.__version__,
+             cuda=torch.version.cuda, python=sys.version.split()[0])
+
+        phase = "build"
+        from repro_torch.kernels import _build
+        t0 = time.perf_counter()
+        built = _build.build_all()
+        logs = {name: [ln.strip() for ln in
+                       (_build.BUILD_DIR / f"{name}.log").read_text()
+                       .splitlines() if "registers" in ln or "spill" in ln]
+                for name in built}
+        emit("build", seconds=time.perf_counter() - t0, built=built,
+             nvcc=_build.nvcc(), ptxas=logs)
+
+        phase = "kernels"
+        errs = phase_kernels(dev)
+        phase = "serve"
+        served = phase_serve(dev)
+        launches = served["launches"]
+        phase = "timing"
+        timing = phase_timing(dev, served)
+    except Exception as exc:  # report which phase failed, then fail
+        traceback.print_exc()
+        emit(phase, ok=False, error=f"{type(exc).__name__}: {exc}")
+        return 1
+
+    src = "src/repro_torch/kernels/{0}/{0}.cu"
+    replaces = {
+        "paged_attention":
+            "src/repro/kernels/paged_attention/paged_attention.py:95",
+        "flash_attention":
+            "src/repro/kernels/flash_attention/flash_attention.py:90",
+    }
+    summary = [{
+        "name": name, "route": "cuda", "source": src.format(name),
+        "replaces": replaces[name], "launches": launches[name],
+        "max_abs_err": errs[name], "ms": timing[name]["ms"],
+        "plain_ms": timing[name]["plain_ms"],
+        "bound_ms": timing[name]["bound_ms"],
+        "bound_by": timing[name]["bound_by"],
+        "library_ms": timing[name]["library_ms"],
+    } for name in ("paged_attention", "flash_attention")]
+    print(json.dumps({"kernels": summary}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,102 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``.cu`` file of the package is compiled by ``nvcc`` into a shared
+library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds, not minutes).  All sources are compiled
+at the first use of any kernel, one ``nvcc`` process per source, started
+together.  Libraries go to ``build/kernels/`` at the root of the checkout,
+named by a hash of their source and flags, so an unchanged source is not
+built twice.  Only sources inside the repository are built.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+KERNELS_DIR = Path(__file__).resolve().parent
+REPO_ROOT = KERNELS_DIR.parents[2]
+BUILD_DIR = REPO_ROOT / "build" / "kernels"
+SOURCES = {
+    "flash_attention": KERNELS_DIR / "flash_attention" / "flash_attention.cu",
+    "paged_attention": KERNELS_DIR / "paged_attention" / "paged_attention.cu",
+}
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_libraries: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else the one on
+    ``PATH``, else ``/usr/local/cuda/bin/nvcc``."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build_all() -> dict:
+    """Compile every source whose library is missing, in parallel.
+
+    Returns ``{name: seconds}`` for the sources built by this call (empty
+    when all were built already).  The compiler's report (registers,
+    shared memory, spills from ``-Xptxas=-v``) is kept beside each library
+    as ``<name>.log``.  Raises ``RuntimeError`` with the compiler's output
+    if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src in SOURCES.items():
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    built, failed = {}, []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        (BUILD_DIR / f"{name}.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+        built[name] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return built
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building all kernels first if
+    any library is missing."""
+    lib = _libraries.get(name)
+    if lib is None:
+        build_all()
+        lib = ctypes.CDLL(str(library_path(name)))
+        _libraries[name] = lib
+    return lib
+
+
+def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
+    """Raise when a kernel's C entry point reported a CUDA error: a refused
+    launch never runs, and a later synchronize would not report it."""
+    if err:
+        msg = getattr(lib, f"{name}_error_string")
+        msg.restype = ctypes.c_char_p
+        msg.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{msg(err).decode()} (cudaError {err})")

@@ -1,0 +1,87 @@
+"""Dispatch for the flash-attention kernel.
+
+A CUDA tensor launches the hand-written Hopper kernel
+(``flash_attention.cu``), whatever the sequence lengths: the kernel masks
+the ragged edges itself.  A CPU tensor runs the plain PyTorch version
+(``ref.reference``).  What the kernel does not take raises on either
+device: ``H % KV != 0``, a V head dim that differs from Q's (MLA comes with
+a later kernel), a head dim outside 16/64/128, a dtype other than
+float32/bfloat16, non-contiguous inputs.  There is no quiet fallback.
+
+``flash_attention.launches`` counts kernel launches (CPU calls do not
+count).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .. import _build
+from .._checks import DTYPES, HEAD_DIMS, require, same_device_contiguous
+from . import ref
+
+_WHAT = "flash_attention"
+
+
+def _entry():
+    lib = _build.library(_WHAT)
+    fn = lib.flash_attention_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return lib, fn
+
+
+def flash_attention(q, k, v, *, q_positions, k_positions, causal=True,
+                    window=0, logit_softcap=0.0):
+    """q: [B, Sq, H, hd]; k, v: [B, Skv, KV, hd]; q_positions: [Sq] int32;
+    k_positions: [Skv] int32 (-1 marks an empty slot).  Returns
+    [B, Sq, H, hd]."""
+    dev = same_device_contiguous(_WHAT, q=q, k=k, v=v,
+                                 q_positions=q_positions,
+                                 k_positions=k_positions)
+    require(q.dim() == 4 and k.dim() == 4, _WHAT,
+            "q must be [B, Sq, H, hd] and k, v [B, Skv, KV, hd]")
+    B, Sq, H, hd = q.shape
+    _, Skv, KV, _ = k.shape
+    require(v.shape[:3] == k.shape[:3] and k.shape[0] == B, _WHAT,
+            f"k {tuple(k.shape)} and v {tuple(v.shape)} disagree with q "
+            f"{tuple(q.shape)}")
+    require(k.shape[-1] == hd and v.shape[-1] == hd, _WHAT,
+            f"k/v head dims {k.shape[-1]}/{v.shape[-1]} must equal q's {hd}")
+    require(H % KV == 0, _WHAT, f"{H} query heads do not group over {KV} "
+            "KV heads")
+    require(hd in HEAD_DIMS, _WHAT, f"head dim {hd} not in {HEAD_DIMS}")
+    require(q.dtype in DTYPES and k.dtype == q.dtype and v.dtype == q.dtype,
+            _WHAT, "q, k, v must share one dtype, float32 or bfloat16")
+    require(q_positions.shape == (Sq,) and k_positions.shape == (Skv,),
+            _WHAT, "q_positions must be [Sq] and k_positions [Skv]")
+    require(q_positions.dtype == torch.int32
+            and k_positions.dtype == torch.int32, _WHAT,
+            "positions must be int32")
+    require(Sq > 0 and Skv > 0, _WHAT, "empty sequence")
+    if dev.type == "cpu":
+        return ref.reference(q, k, v, q_positions=q_positions,
+                             k_positions=k_positions, causal=causal,
+                             window=window, logit_softcap=logit_softcap)
+
+    require(B * H <= 65535, _WHAT, f"B * H = {B * H} exceeds the grid")
+    out = torch.empty_like(q)
+    lib, fn = _entry()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 q_positions.data_ptr(), k_positions.data_ptr(),
+                 out.data_ptr(), B, Sq, Skv, H, KV, hd, 1.0 / math.sqrt(hd),
+                 int(bool(causal)), int(window), float(logit_softcap),
+                 DTYPES[q.dtype], stream)
+    _build.check_launch(lib, _WHAT, err)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

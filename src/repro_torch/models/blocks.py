@@ -1,0 +1,302 @@
+"""Model blocks of the dense decoder: RMSNorm, RoPE, GQA attention over no
+cache, a dense cache or a paged block pool, and the gated FFN.
+
+A port of ``repro.models.blocks`` (the global-attention, dense-FFN subset).
+Parameters are plain dicts of tensors under the reference's keys.  Attention
+has two implementations, chosen by ``impl``:
+
+* ``"kernel"`` (default) — the hand-written Hopper kernels through their
+  ``ops`` wrappers (on CPU tensors the wrappers run the plain version);
+* ``"plain"``  — plain PyTorch, the reference path the kernels are held
+  against.
+
+Conventions follow the reference: q/k/v are [B, S, H, hd]; caches hold
+post-RoPE keys.  Unlike the reference, whose functions return new arrays,
+cache writes here happen in place (``_prefill_cache``, the dense decode
+slot write and ``paged_write``): the functions return the cache dict they
+were given, updated.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.paged_attention import ref as pa_ref
+
+from .config import ModelConfig
+
+NEG_INF = -1e30
+IMPLS = ("kernel", "plain")
+
+
+# =============================================================================
+# initializers / norms / rope
+# =============================================================================
+
+def dense_init(gen: torch.Generator, shape: tuple, dtype,
+               device) -> torch.Tensor:
+    """Normal / sqrt(d_in) weights of ``shape`` (..., d_in, d_out)."""
+    w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return (w * (1.0 / math.sqrt(shape[-2]))).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with f32 internals and a ``(1 + scale)`` gain."""
+    xf = x.float()
+    rstd = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (xf * rstd * (1.0 + scale.float())).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [B, S, H, hd]; positions: [S] or [B, S] absolute positions.
+    Rotates split halves (not interleaved pairs)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs
+    if angles.dim() == 2:
+        angles = angles[None]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if not cap:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# =============================================================================
+# attention core
+# =============================================================================
+
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """[B, S, KV, hd] -> [B, S, H, hd], each KV head repeated H/KV times."""
+    n_kv = k.shape[2]
+    if n_kv == n_heads:
+        return k
+    return k.repeat_interleave(n_heads // n_kv, dim=2)
+
+
+def _scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+                 window: int) -> torch.Tensor:
+    """[Sq, Skv] validity from absolute positions (k_pos -1 = empty slot)."""
+    m = k_pos[None, :] >= 0
+    if causal:
+        m = m & (k_pos[None, :] <= q_pos[:, None])
+    if window:
+        m = m & (k_pos[None, :] > q_pos[:, None] - window)
+    return m
+
+
+def attention(q, k, v, *, q_positions, k_positions, causal: bool = True,
+              window: int = 0, logit_softcap: float = 0.0,
+              impl: str = "kernel") -> torch.Tensor:
+    """Softmax attention with GQA, optional sliding window and softcap.
+
+    q: [B, Sq, H, hd]; k, v: [B, Skv, KV, hd]; positions are absolute int32.
+    """
+    if impl == "kernel":
+        return fa_ops.flash_attention(
+            q, k, v, q_positions=q_positions, k_positions=k_positions,
+            causal=causal, window=window, logit_softcap=logit_softcap)
+    if impl != "plain":
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    n_heads = q.shape[2]
+    k = _expand_kv(k, n_heads)
+    v = _expand_kv(v, n_heads)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    return _attn_block(q, k, v, q_positions, k_positions, scale, causal,
+                       window, logit_softcap)
+
+
+def _attn_block(q, k, v, q_pos, k_pos, scale, causal, window, cap):
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    scores = softcap(scores, cap)
+    mask = _scores_mask(q_pos, k_pos, causal=causal, window=window)
+    scores = scores.masked_fill(~mask[None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+# =============================================================================
+# attention layer (projections + cache handling)
+# =============================================================================
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, repeats: int,
+                   dtype, device) -> dict:
+    d = cfg.d_model
+    return {
+        "ln": torch.zeros((repeats, d), dtype=dtype, device=device),
+        "wq": dense_init(gen, (repeats, d, cfg.q_dim), dtype, device),
+        "wk": dense_init(gen, (repeats, d, cfg.kv_dim), dtype, device),
+        "wv": dense_init(gen, (repeats, d, cfg.kv_dim), dtype, device),
+        "wo": dense_init(gen, (repeats, cfg.q_dim, d), dtype, device),
+    }
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, kv_len: int, dtype,
+                    device) -> dict:
+    shape = (batch, kv_len, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        # absolute position held by each slot; -1 = empty
+        "pos": torch.full((kv_len,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def init_paged_attn_cache(cfg: ModelConfig, n_pages: int, block_size: int,
+                          dtype, device) -> dict:
+    """K/V page pools shared by every decode lane; ``n_pages`` includes the
+    trailing null (scratch) page inactive lanes write into."""
+    shape = (n_pages, block_size, cfg.n_kv_heads, cfg.head_dim)
+    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def paged_write(k_pages, v_pages, tables, positions, k, v) -> tuple:
+    """Scatter per-token rows into a pair of page pools through block
+    tables, in place.
+
+    tables: [B, max_blocks]; positions: [B] (decode: one row per lane) or
+    [S] with B == 1; k, v: [B, S, KV, hd].  Rows whose table entry is the
+    null page, and rows past the table's reach, land in the last (scratch)
+    page, which reads never see (they are masked by ``context_lens``)."""
+    bs = k_pages.shape[1]
+    width = tables.shape[1]
+    null = k_pages.shape[0] - 1
+    blk = positions.long() // bs
+    safe = blk.clamp(max=width - 1)
+    off = positions.long() % bs
+    if k.shape[0] == positions.shape[0]:          # decode: one row per lane
+        phys = tables.gather(1, safe[:, None])[:, 0]
+        rows_k, rows_v = k[:, 0], v[:, 0]
+    else:                                          # one lane, S rows
+        phys = tables[0, safe]
+        rows_k, rows_v = k[0], v[0]
+    phys = torch.where(blk < width, phys.long(), null)
+    k_pages[phys, off] = rows_k
+    v_pages[phys, off] = rows_v
+    return k_pages, v_pages
+
+
+def attn_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *, local: bool,
+               positions: torch.Tensor, cache: Optional[dict] = None,
+               impl: str = "kernel",
+               paged_tables: Optional[torch.Tensor] = None) -> tuple:
+    """Pre-norm global-attention block. Returns (residual output, cache).
+
+    No cache or a prefill cache: ``positions`` = [S].  Dense decode: x is
+    [B, 1, D] and ``positions`` a 0-d tensor of the current position.
+    Paged decode (cache holds ``k_pages``/``v_pages``, ``paged_tables`` is
+    [B, max_blocks]): x is [B, 1, D] and ``positions`` = [B] per-lane
+    positions; each lane's row is written through its table, then the
+    paged kernel attends over the lane's resident rows."""
+    if local:
+        raise NotImplementedError(
+            "sliding-window layers are not ported yet")
+    B, S, _ = x.shape
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = (h @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = (h @ p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = (h @ p["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    cap = cfg.attn_logit_softcap
+
+    if cache is not None and "k_pages" in cache:
+        if paged_tables is None:
+            raise ValueError("a paged cache needs block tables")
+        if S != 1:
+            raise NotImplementedError(
+                "multi-row paged prefill is not ported yet")
+        pos = positions.reshape(-1)                           # [B]
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos[:, None], cfg.rope_theta)
+        paged_write(cache["k_pages"], cache["v_pages"], paged_tables, pos,
+                    k, v)
+        ctx = pos + 1                  # resident incl. the token just written
+        if impl == "kernel":
+            o = pa_ops.paged_attention(
+                q[:, 0], cache["k_pages"], cache["v_pages"], paged_tables,
+                ctx, logit_softcap=cap)[:, None]
+        elif impl == "plain":
+            o = pa_ref.reference(
+                q, cache["k_pages"], cache["v_pages"], paged_tables, ctx,
+                q_positions=pos[:, None], logit_softcap=cap)
+        else:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    elif cache is None or S > 1:       # no cache, or prefill filling one
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        o = attention(q, k, v, q_positions=positions, k_positions=positions,
+                      causal=True, logit_softcap=cap, impl=impl)
+        if cache is not None:
+            _prefill_cache(cache, k, v, positions)
+    else:                              # dense decode step
+        pos = positions.reshape(())
+        q = apply_rope(q, pos[None], cfg.rope_theta)
+        k = apply_rope(k, pos[None], cfg.rope_theta)
+        # index_copy_ keeps the slot on the device (no host round trip)
+        slot = pos.clamp(max=cache["k"].shape[1] - 1).long().reshape(1)
+        cache["k"].index_copy_(1, slot, k)
+        cache["v"].index_copy_(1, slot, v)
+        cache["pos"].index_copy_(0, slot, pos.to(torch.int32).reshape(1))
+        o = attention(q, cache["k"], cache["v"], q_positions=pos[None],
+                      k_positions=cache["pos"], causal=True,
+                      logit_softcap=cap, impl=impl)
+
+    out = o.reshape(B, S, cfg.q_dim) @ p["wo"]
+    return x + out, cache
+
+
+def _prefill_cache(cache: dict, k, v, positions) -> dict:
+    """Global layers: the prompt's rows (the last ``size`` of them when the
+    prompt is longer than the cache) fill slots 0.., in place."""
+    n = min(k.shape[1], cache["k"].shape[1])
+    cache["k"][:, :n] = k[:, -n:]
+    cache["v"][:, :n] = v[:, -n:]
+    cache["pos"][:n] = positions[-n:].to(torch.int32)
+    return cache
+
+
+# =============================================================================
+# FFN (SwiGLU / GeGLU)
+# =============================================================================
+
+def init_ffn(gen: torch.Generator, cfg: ModelConfig, repeats: int, dtype,
+             device) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "ln": torch.zeros((repeats, d), dtype=dtype, device=device),
+        "w_gate": dense_init(gen, (repeats, d, f), dtype, device),
+        "w_up": dense_init(gen, (repeats, d, f), dtype, device),
+        "w_down": dense_init(gen, (repeats, f, d), dtype, device),
+    }
+
+
+def _act_fn(name: str):
+    if name == "gelu":   # jax.nn.gelu's default is the tanh approximation
+        return lambda x: F.gelu(x, approximate="tanh")
+    return F.silu
+
+
+def ffn_layer(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    act = _act_fn(cfg.ffn_act)
+    out = (act(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
+    return x + out

@@ -1,0 +1,123 @@
+"""Serving telemetry: the part of ``repro.runtime.telemetry.ServeTelemetry``
+that the continuous-batching engine records each step (slot occupancy,
+block-pool pressure, residency, emitted tokens, step time), plus the split
+of each step's host-clock time into its prefill and decode parts.
+
+The engine reads a token back to the host at the end of every prefill and
+every decode step, which waits for the device, so these host-clock times
+include the device work they cover.
+"""
+
+from __future__ import annotations
+
+import statistics
+from collections import deque
+from dataclasses import dataclass, field
+
+
+@dataclass
+class ServeStep:
+    """One continuous-batching engine step's counters."""
+
+    step: int
+    seconds: float
+    active_slots: tuple          # slot indices that decoded this step
+    n_slots: int
+    blocks_in_use: int
+    n_blocks: int
+    prefills: int = 0            # prefills completed (one token each)
+    new_tokens: int = 0          # decode tokens emitted
+    resident_bytes: int = 0
+    capacity_bytes: int = 0
+    prefill_seconds: float = 0.0
+    decode_seconds: float = 0.0
+
+
+@dataclass
+class ServeTelemetry:
+    """Per-step serving counters with whole-run aggregates."""
+
+    window: int = 50
+    history: int = 10_000        # retained ServeStep records
+    steps: deque = field(default_factory=deque)
+
+    def __post_init__(self):
+        self.steps = deque(self.steps, maxlen=self.history)
+        self._total_tokens = 0
+        self._busy_seconds = 0.0
+        self._peak_pressure = 0.0
+        self._max_concurrency = 0
+        self._peak_resident_bytes = 0
+        self._prefills = 0
+        self._prefill_seconds = 0.0
+        self._decode_steps = 0
+        self._decode_seconds = 0.0
+
+    def record_step(self, step: int, seconds: float, active_slots,
+                    n_slots: int, blocks_in_use: int, n_blocks: int,
+                    prefills: int = 0, new_tokens: int = 0,
+                    resident_bytes: int = 0, capacity_bytes: int = 0,
+                    prefill_seconds: float = 0.0,
+                    decode_seconds: float = 0.0) -> None:
+        self.steps.append(ServeStep(
+            step=step, seconds=seconds, active_slots=tuple(active_slots),
+            n_slots=n_slots, blocks_in_use=blocks_in_use, n_blocks=n_blocks,
+            prefills=prefills, new_tokens=new_tokens,
+            resident_bytes=resident_bytes, capacity_bytes=capacity_bytes,
+            prefill_seconds=prefill_seconds, decode_seconds=decode_seconds))
+        self._total_tokens += new_tokens + prefills
+        self._busy_seconds += seconds
+        if n_blocks:
+            self._peak_pressure = max(self._peak_pressure,
+                                      blocks_in_use / n_blocks)
+        self._max_concurrency = max(self._max_concurrency, len(active_slots))
+        self._peak_resident_bytes = max(self._peak_resident_bytes,
+                                        resident_bytes)
+        self._prefills += prefills
+        self._prefill_seconds += prefill_seconds
+        if active_slots:
+            self._decode_steps += 1
+            self._decode_seconds += decode_seconds
+
+    def _recent(self) -> list:
+        return list(self.steps)[-self.window:]
+
+    def occupancy(self) -> float:
+        """Mean fraction of slots decoding over the recent window."""
+        vals = [len(s.active_slots) / s.n_slots for s in self._recent()
+                if s.n_slots]
+        return statistics.mean(vals) if vals else 0.0
+
+    def cache_pressure(self) -> float:
+        """Mean fraction of cache blocks allocated over the recent window."""
+        vals = [s.blocks_in_use / s.n_blocks for s in self._recent()
+                if s.n_blocks]
+        return statistics.mean(vals) if vals else 0.0
+
+    def peak_cache_pressure(self) -> float:
+        return self._peak_pressure
+
+    def peak_resident_bytes(self) -> int:
+        return self._peak_resident_bytes
+
+    def max_concurrency(self) -> int:
+        return self._max_concurrency
+
+    def mean_prefill_ms(self) -> float:
+        """Whole-run mean time of one whole-prompt prefill (with its
+        insertion into the paged pools)."""
+        return self._prefill_seconds / self._prefills * 1e3 \
+            if self._prefills else 0.0
+
+    def mean_decode_step_ms(self) -> float:
+        """Whole-run mean time of one batched decode step."""
+        return self._decode_seconds / self._decode_steps * 1e3 \
+            if self._decode_steps else 0.0
+
+    def total_tokens(self) -> int:
+        return self._total_tokens
+
+    def tokens_per_sec(self) -> float:
+        if self._busy_seconds <= 0:
+            return 0.0
+        return self._total_tokens / self._busy_seconds

@@ -1,0 +1,291 @@
+"""Block (paged) KV cache of the continuous-batching engine: the host-side
+``BlockAllocator`` and the physical ``PagedKVStore``.
+
+The port's copy of the global-attention part of ``repro.serve.cache``.
+Cache memory is divided into blocks of ``block_size`` tokens; each
+admitted request owns a per-slot block table that grows one block at a
+time as it decodes, and every block returns to the free list when the
+request finishes.  Admission reserves a request's worst case
+(``prompt + max_new`` tokens), so decode can never run out of blocks.
+
+Failures are typed as in the reference: ``CacheExhausted`` (a
+``MemoryError``) is expected backpressure, ``AllocatorInvariantError`` (an
+``AssertionError``) is a bug.
+
+``PagedKVStore`` holds a pair of pools ``[n_layers, n_blocks + 1,
+block_size, KV, hd]``; the extra trailing page is the null block that
+inactive lanes and unallocated table entries point at.  The engine writes
+the pools in place, so a store bound to them never needs rebinding.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from repro_torch.device import resolve_device
+
+
+class CacheError(Exception):
+    """Base class for the allocator's typed failures."""
+
+
+class CacheExhausted(CacheError, MemoryError):
+    """Expected capacity backpressure: the pool cannot satisfy this claim
+    right now (admission waits for blocks to be freed)."""
+
+
+class AllocatorInvariantError(CacheError, AssertionError):
+    """A broken allocator invariant (double allocate, double free, shrink,
+    leaked blocks): a bug in the caller or the allocator itself."""
+
+
+@dataclass(frozen=True)
+class CacheConfig:
+    """Block pool geometry: ``n_blocks`` blocks of ``block_size`` tokens."""
+
+    block_size: int = 16
+    n_blocks: int = 256
+
+    def blocks_for(self, n_tokens: int) -> int:
+        """Blocks needed to hold ``n_tokens`` cache entries."""
+        return max(0, -(-n_tokens // self.block_size))
+
+    @property
+    def null_block(self) -> int:
+        """Physical id of the scratch page (one past the allocatable pool)."""
+        return self.n_blocks
+
+
+class PagedKVStore:
+    """Physical paged storage for a stack of layers: ``k_pages`` and
+    ``v_pages`` of shape ``[n_layers, n_blocks + 1, block_size, KV, hd]``,
+    page ``n_blocks`` being the null block."""
+
+    def __init__(self, config: CacheConfig, n_layers: int, n_kv_heads: int,
+                 head_dim: int, dtype=torch.float32, device=None):
+        shape = (n_layers, config.n_blocks + 1, config.block_size,
+                 n_kv_heads, head_dim)
+        device = resolve_device(device)
+        self.config = config
+        self.k_pages = torch.zeros(shape, dtype=dtype, device=device)
+        self.v_pages = torch.zeros(shape, dtype=dtype, device=device)
+
+    @classmethod
+    def from_pools(cls, config: CacheConfig, k_pages,
+                   v_pages) -> "PagedKVStore":
+        """Wrap existing pool tensors (a leaf of the engine's cache tree)."""
+        store = cls.__new__(cls)
+        store.config = config
+        store.rebind(k_pages, v_pages)
+        return store
+
+    def rebind(self, k_pages, v_pages) -> None:
+        if k_pages.shape[:3] != v_pages.shape[:3]:
+            raise ValueError(f"pool shapes disagree: {tuple(k_pages.shape)} "
+                             f"vs {tuple(v_pages.shape)}")
+        if k_pages.shape[1] != self.config.n_blocks + 1 or \
+                k_pages.shape[2] != self.config.block_size:
+            raise ValueError(f"pool shape {tuple(k_pages.shape)} does not "
+                             f"match {self.config}")
+        self.k_pages = k_pages
+        self.v_pages = v_pages
+
+    @property
+    def n_layers(self) -> int:
+        return self.k_pages.shape[0]
+
+    @property
+    def block_bytes(self) -> int:
+        """Device bytes one block id pins across all layers (both pools)."""
+        per_k, per_v = self.k_pages[:, 0], self.v_pages[:, 0]
+        return per_k.numel() * per_k.element_size() + \
+            per_v.numel() * per_v.element_size()
+
+    def write_token(self, table: list, pos: int, k, v) -> None:
+        """Write one token's rows (``[n_layers, KV, hd]``) at logical
+        position ``pos`` of the lane backed by ``table``, in place."""
+        block = table[pos // self.config.block_size]
+        off = pos % self.config.block_size
+        self.k_pages[:, block, off] = k
+        self.v_pages[:, block, off] = v
+
+    def gather_slot(self, table: list, context_len: int) -> tuple:
+        """The lane's logical rows, ``[n_layers, context_len, KV, hd]``
+        each, gathered through ``table``."""
+        idx = torch.as_tensor(table, dtype=torch.long,
+                              device=self.k_pages.device)
+        L = self.n_layers
+        k = self.k_pages[:, idx].reshape(
+            (L, -1) + tuple(self.k_pages.shape[3:]))[:, :context_len]
+        v = self.v_pages[:, idx].reshape(
+            (L, -1) + tuple(self.v_pages.shape[3:]))[:, :context_len]
+        return k, v
+
+
+class BlockAllocator:
+    """Free-list block allocator with one growing block table per slot.
+
+    Admissions may carry a worst-case reservation (``reserve_tokens``):
+    the reserved but not yet claimed blocks of every live slot are
+    subtracted from what ``can_allocate`` promises the next admission, and
+    a slot's own ``extend``s draw on its reservation, so a reserving
+    scheduler never sees ``CacheExhausted`` mid-decode.  The free list is
+    LIFO, with blocks claimed and returned in the reference's order, so
+    both allocators hand out the same block ids for the same operations.
+    """
+
+    def __init__(self, config: CacheConfig,
+                 store: Optional[PagedKVStore] = None):
+        self.config = config
+        self._free: list[int] = list(range(config.n_blocks - 1, -1, -1))
+        self.tables: dict[int, list[int]] = {}     # slot -> block ids
+        self._tokens: dict[int, int] = {}          # slot -> resident tokens
+        self._reserve: dict[int, int] = {}         # slot -> reserved blocks
+        self.stores: list[PagedKVStore] = []
+        if store is not None:
+            self.attach_store(store)
+
+    # -- queries ----------------------------------------------------------------
+    @property
+    def n_blocks(self) -> int:
+        return self.config.n_blocks
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_in_use(self) -> int:
+        return self.config.n_blocks - self.n_free
+
+    def blocks_needed(self, n_tokens: int,
+                      reserve_tokens: Optional[int] = None) -> int:
+        """Admission price: blocks for ``n_tokens``, or for the worst case
+        ``reserve_tokens`` when that is larger."""
+        return self.config.blocks_for(max(n_tokens, reserve_tokens or 0))
+
+    def outstanding_blocks(self) -> int:
+        """Blocks promised to live reservations but not yet claimed."""
+        return sum(max(0, reserved - len(self.tables.get(slot, ())))
+                   for slot, reserved in self._reserve.items())
+
+    def n_available(self) -> int:
+        """Blocks the next admission may be promised."""
+        return self.n_free - self.outstanding_blocks()
+
+    def can_allocate(self, n_tokens: int,
+                     reserve_tokens: Optional[int] = None) -> bool:
+        return self.blocks_needed(n_tokens, reserve_tokens) \
+            <= self.n_available()
+
+    # -- lifecycle ---------------------------------------------------------------
+    def _claim(self, n: int, what: str) -> list[int]:
+        if n > self.n_free:
+            raise CacheExhausted(
+                f"need {n} blocks for {what}, {self.n_free} free")
+        return [self._free.pop() for _ in range(max(0, n))]
+
+    def allocate(self, slot: int, n_tokens: int, *,
+                 reserve_tokens: Optional[int] = None) -> list[int]:
+        """Claim blocks for a request admitted into ``slot`` holding
+        ``n_tokens`` (prompt + first generated token); with
+        ``reserve_tokens`` also reserve blocks for its worst case.
+        Returns the slot's block ids."""
+        if slot in self.tables:
+            raise AllocatorInvariantError(
+                f"slot {slot} already has an allocation")
+        if not self.can_allocate(n_tokens, reserve_tokens):
+            raise CacheExhausted(
+                f"need {self.blocks_needed(n_tokens, reserve_tokens)} blocks "
+                f"for {n_tokens} tokens, {self.n_available()} available "
+                f"({self.n_free} free, {self.outstanding_blocks()} reserved)")
+        table = self._claim(self.config.blocks_for(n_tokens), f"slot {slot}")
+        self.tables[slot] = table
+        self._tokens[slot] = n_tokens
+        if reserve_tokens is not None:
+            self._reserve[slot] = self.config.blocks_for(reserve_tokens)
+        return list(table)
+
+    def extend(self, slot: int, n_tokens_total: int) -> list[int]:
+        """Grow ``slot``'s table to cover ``n_tokens_total`` resident
+        tokens; returns the newly claimed block ids (usually none).  Growth
+        within the slot's reservation always succeeds; beyond it, it must
+        fit in the unreserved headroom, else ``CacheExhausted``."""
+        if slot not in self.tables:
+            raise AllocatorInvariantError(f"slot {slot} has no allocation")
+        if n_tokens_total < self._tokens[slot]:
+            raise AllocatorInvariantError(
+                f"slot {slot}: cannot shrink {self._tokens[slot]} -> "
+                f"{n_tokens_total}")
+        need = self.config.blocks_for(n_tokens_total) - len(self.tables[slot])
+        if need > 0:
+            own = max(0, self._reserve.get(slot, 0) - len(self.tables[slot]))
+            extra = max(0, need - own)
+            if extra > self.n_available():
+                raise CacheExhausted(
+                    f"slot {slot}: needs {need} more blocks ({extra} beyond "
+                    f"its reservation), {self.n_available()} available")
+        fresh = self._claim(max(0, need), f"slot {slot}")
+        self.tables[slot].extend(fresh)
+        self._tokens[slot] = n_tokens_total
+        return fresh
+
+    def free_slot(self, slot: int) -> int:
+        """Return every block of ``slot`` to the free list (in table order,
+        so the next claims reuse them first); returns how many."""
+        if slot not in self.tables:
+            raise AllocatorInvariantError(f"slot {slot} has no allocation")
+        blocks = self.tables.pop(slot)
+        self._tokens.pop(slot)
+        self._reserve.pop(slot, None)
+        self._free.extend(reversed(blocks))
+        return len(blocks)
+
+    def padded_table(self, slot: int, width: int) -> list[int]:
+        """``slot``'s table padded to ``width`` entries with the null
+        block (unallocated logical blocks resolve to the scratch page)."""
+        table = self.tables[slot]
+        if len(table) > width:
+            raise ValueError(
+                f"table of {len(table)} blocks exceeds width {width}")
+        return table + [self.config.null_block] * (width - len(table))
+
+    # -- invariants --------------------------------------------------------------
+    def check(self) -> None:
+        """Every block is free or in exactly one table, each table covers
+        exactly its slot's tokens, and reservations fit the free pool."""
+        owned = [b for t in self.tables.values() for b in t]
+        everything = self._free + owned
+        if len(set(everything)) != len(everything):
+            raise AllocatorInvariantError("a block is owned twice")
+        if sorted(everything) != list(range(self.config.n_blocks)):
+            raise AllocatorInvariantError(
+                f"{self.config.n_blocks - len(everything)} blocks "
+                "unaccounted for")
+        for slot, table in self.tables.items():
+            if len(table) != self.config.blocks_for(self._tokens[slot]):
+                raise AllocatorInvariantError(
+                    f"slot {slot}: {len(table)} blocks for "
+                    f"{self._tokens[slot]} tokens")
+        if set(self._reserve) - set(self.tables):
+            raise AllocatorInvariantError("reservation without a table")
+        if self.outstanding_blocks() > self.n_free:
+            raise AllocatorInvariantError(
+                f"reservations outstanding ({self.outstanding_blocks()}) "
+                f"exceed free blocks ({self.n_free})")
+
+    # -- physical store ----------------------------------------------------------
+    def attach_store(self, store: PagedKVStore) -> None:
+        if store.config != self.config:
+            raise ValueError("store geometry does not match allocator config")
+        self.stores.append(store)
+
+    def resident_bytes(self) -> int:
+        """Device bytes pinned by allocated blocks across the stores."""
+        return self.n_in_use * sum(s.block_bytes for s in self.stores)
+
+    def capacity_bytes(self) -> int:
+        return self.config.n_blocks * sum(s.block_bytes for s in self.stores)

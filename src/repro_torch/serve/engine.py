@@ -1,0 +1,331 @@
+"""Greedy serving: step factories, the static-batch ``Engine`` and the
+continuous-batching ``ContinuousEngine`` over a paged KV cache.
+
+A port of the ``paged=True``, whole-prompt-prefill, greedy subset of
+``repro.serve.engine``.  ``ContinuousEngine`` admits queued requests into
+free decode lanes mid-stream (``SlotScheduler`` + ``BlockAllocator``),
+prefills each prompt whole into a dense single-request cache, scatters
+that cache into the shared page pools (``lm.insert_paged_prompt``), and
+then decodes all lanes in one batched step that writes each lane's row
+through its block table and attends with the paged kernel.  Each lane
+computes exactly the B=1 decode path, so its tokens match
+``Engine.generate`` on that request alone: the gathered paged view has
+exactly ``kv_len`` rows (``kv_len % block_size == 0`` is enforced) and
+masked rows add exact zeros.
+
+``impl="kernel"`` (default) launches the hand-written Hopper kernels on
+CUDA tensors (their plain versions on CPU tensors); ``impl="plain"`` is
+the plain PyTorch reference path.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import lm
+from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.telemetry import ServeTelemetry
+
+from .cache import BlockAllocator, CacheConfig, CacheExhausted, PagedKVStore
+from .scheduler import ActiveSlot, Request, SlotScheduler
+
+
+def _greedy(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Next token per row from the last position's logits (pad ids cut)."""
+    return logits[:, -1, :cfg.vocab_size].argmax(dim=-1).to(torch.int32)
+
+
+def make_prefill_step(cfg: ModelConfig, impl: str = "kernel"):
+    """prefill(params, cache, tokens [B, S]) -> (next_tok [B], cache)."""
+    def prefill_step(params, cache, tokens):
+        logits, cache = lm.forward(cfg, params, tokens, cache=cache,
+                                   mode="prefill", impl=impl)
+        return _greedy(logits, cfg), cache
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, impl: str = "kernel"):
+    """decode(params, cache, tokens [B, 1], pos 0-d) -> (next_tok, cache)."""
+    def serve_step(params, cache, tokens, pos):
+        logits, cache = lm.forward(cfg, params, tokens, positions=pos,
+                                   cache=cache, mode="decode", impl=impl)
+        return _greedy(logits, cfg), cache
+    return serve_step
+
+
+def make_paged_decode_step(cfg: ModelConfig, impl: str = "kernel"):
+    """decode(params, caches, toks [B], pos [B], tables {"global": [B, W]})
+    -> (next_toks [B], caches).  One batched step over every lane; each
+    lane writes its row through its table (inactive lanes hold null rows,
+    so their writes land in the scratch page)."""
+    def decode_step(params, caches, toks, pos, tables):
+        logits, caches = lm.forward(cfg, params, toks[:, None],
+                                    positions=pos, cache=caches,
+                                    mode="decode", impl=impl,
+                                    paged_tables=tables["global"])
+        return _greedy(logits, cfg), caches
+    return decode_step
+
+
+def _check_servable(cfg: ModelConfig) -> None:
+    reason = lm.unsupported_reason(cfg)
+    if reason is not None:
+        raise NotImplementedError(f"{cfg.name}: {reason}")
+
+
+@dataclass
+class Engine:
+    """Batched greedy decoding over a dense cache: the token-identity
+    oracle of ``ContinuousEngine``."""
+
+    cfg: ModelConfig
+    params: dict
+    kv_len: int
+    dtype: torch.dtype = torch.float32
+    impl: str = "kernel"
+    device: Optional[object] = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        _check_servable(self.cfg)
+        self._prefill = make_prefill_step(self.cfg, self.impl)
+        self._decode = make_serve_step(self.cfg, self.impl)
+
+    @torch.no_grad()
+    def generate(self, prompts, max_new_tokens: int) -> torch.Tensor:
+        """prompts: [B, S] token ids -> [B, max_new_tokens] int32 tokens
+        (the prefill's token first)."""
+        prompts = torch.as_tensor(prompts, device=self.device)
+        B, S = prompts.shape
+        cache = lm.init_cache(self.cfg, B, self.kv_len, self.dtype,
+                              self.device)
+        tok, cache = self._prefill(self.params, cache, prompts)
+        out = [tok]
+        for t in range(max_new_tokens - 1):
+            pos = torch.tensor(S + t, dtype=torch.int32, device=self.device)
+            tok, cache = self._decode(self.params, cache, tok[:, None], pos)
+            out.append(tok)
+        return torch.stack(out, dim=1)
+
+
+@dataclass
+class ContinuousEngine:
+    """Continuous-batching greedy engine over a physical paged KV cache.
+
+    Requests are ``submit()``-ed with an arrival step, then ``run()``
+    drives the loop: admit arrived requests into free slots (worst-case
+    block reservation), prefill each whole and insert it into the page
+    pools, run one batched decode step over all lanes, retire finished
+    slots and reclaim their blocks.  Only ``paged=True`` is ported;
+    bucketed or chunked prefill, the prefix cache, speculation, sampling
+    and dense lanes raise ``NotImplementedError``.
+    """
+
+    cfg: ModelConfig
+    params: dict
+    kv_len: int = 0
+    n_slots: int = 4
+    dtype: torch.dtype = torch.float32
+    impl: str = "kernel"
+    block_size: int = 16
+    paged: bool = False
+    bucket_prompts: bool = False
+    prefill_chunk: int = 0
+    prefix_cache: bool = False
+    speculate: int = 0
+    device: Optional[object] = None
+    telemetry: Optional[ServeTelemetry] = None
+    _next_rid: int = field(default=0, repr=False)
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        for name in ("bucket_prompts", "prefill_chunk", "prefix_cache",
+                     "speculate"):
+            if getattr(self, name):
+                raise NotImplementedError(f"{name} is not ported yet")
+        if not self.paged:
+            raise NotImplementedError(
+                "dense lanes are not ported yet; pass paged=True")
+        _check_servable(self.cfg)
+        if self.kv_len <= 0:
+            raise ValueError("kv_len must be positive")
+        if self.kv_len % self.block_size:
+            raise ValueError(
+                f"paged mode needs kv_len ({self.kv_len}) divisible by "
+                f"block_size ({self.block_size}) so the gathered KV view "
+                "matches the dense oracle's shape (token identity)")
+        self._max_blocks = self.kv_len // self.block_size
+        cache_cfg = CacheConfig(block_size=self.block_size,
+                                n_blocks=self.n_slots * self._max_blocks)
+        self.allocator = BlockAllocator(cache_cfg)
+        self.scheduler = SlotScheduler(self.n_slots, self.allocator,
+                                       self.kv_len)
+        if self.telemetry is None:
+            self.telemetry = ServeTelemetry()
+        self._prefill = make_prefill_step(self.cfg, self.impl)
+        self._decode_p = make_paged_decode_step(self.cfg, self.impl)
+        self._caches = lm.init_paged_caches(
+            self.cfg, cache_cfg.n_blocks + 1, self.block_size, self.dtype,
+            self.device)
+        for _, keys, leaf in lm.paged_cache_leaves(self.cfg, self._caches):
+            self.allocator.attach_store(PagedKVStore.from_pools(
+                cache_cfg, leaf[keys[0]], leaf[keys[1]]))
+        self._null_row = torch.full((self._max_blocks,),
+                                    cache_cfg.null_block, dtype=torch.int32,
+                                    device=self.device)
+        # one published [n_slots, W] table per block group
+        self._tables = {"global": self._null_row.repeat(self.n_slots, 1)}
+        self._toks = torch.zeros(self.n_slots, dtype=torch.int32,
+                                 device=self.device)
+        self._pos = torch.zeros(self.n_slots, dtype=torch.int32,
+                                device=self.device)
+        self._host_pos: dict[int, int] = {}
+        self._now = 0
+        self._rids: set = set()
+
+    def submit(self, prompt, max_new_tokens: int, *, rid=None,
+               arrival: int = 0, eos_id: Optional[int] = None,
+               sampling=None) -> object:
+        """Queue a request; returns its id.  ``prompt`` is a 1-D sequence
+        of token ids; ``arrival`` the engine step at which it becomes
+        admissible."""
+        if sampling is not None:
+            raise NotImplementedError("sampling is not ported yet")
+        prompt = [int(t) for t in prompt]
+        if rid is None:
+            while self._next_rid in self._rids:
+                self._next_rid += 1
+            rid = self._next_rid
+            self._next_rid += 1
+        elif rid in self._rids:
+            raise ValueError(f"duplicate request id {rid!r}")
+        self.scheduler.submit(Request(rid=rid, prompt=prompt,
+                                      max_new_tokens=max_new_tokens,
+                                      arrival=arrival, eos_id=eos_id))
+        self._rids.add(rid)
+        return rid
+
+    def _full_prefill(self, prompt: torch.Tensor) -> tuple:
+        """Whole-prompt prefill into a fresh dense single-request cache (a
+        fresh one each time: the prefill writes it in place)."""
+        cache = lm.init_cache(self.cfg, 1, self.kv_len, self.dtype,
+                              self.device)
+        return self._prefill(self.params, cache, prompt[None])
+
+    def _refresh_row(self, slot: int) -> torch.Tensor:
+        row = self.allocator.padded_table(slot, self._max_blocks)
+        return torch.tensor(row, dtype=torch.int32, device=self.device)
+
+    def _admit_one(self, act: ActiveSlot) -> None:
+        slot = act.slot
+        prompt = torch.tensor(act.request.prompt, dtype=torch.int32,
+                              device=self.device)
+        row = self._refresh_row(slot)
+        tok, cache = self._full_prefill(prompt)
+        lm.insert_paged_prompt(self.cfg, self._caches, cache,
+                               {"global": row}, block_size=self.block_size,
+                               null_block=self.allocator.config.null_block)
+        start_pos = act.request.prompt_len
+        self._toks[slot] = tok[0]
+        self._pos[slot] = start_pos
+        self._tables["global"][slot] = row
+        self._host_pos[slot] = start_pos
+        act.first_token_step = self._now
+        act.tokens.append(int(tok[0]))
+
+    def _finish(self, slot: int) -> list:
+        """Retire ``slot``: reclaim its blocks and unmap its table row."""
+        act = self.scheduler.finish(slot)
+        self._tables["global"][slot] = self._null_row
+        self._host_pos.pop(slot, None)
+        return act.tokens
+
+    def _grow_tables(self, decoding: list) -> None:
+        """Claim the block backing each lane's next write before the
+        decode step runs (the write needs a physical destination)."""
+        for slot in decoding:
+            if self.allocator.extend(slot, self._host_pos[slot] + 1):
+                self._tables["global"][slot] = self._refresh_row(slot)
+
+    @torch.no_grad()
+    def run(self, max_steps: Optional[int] = None) -> dict:
+        """Serve every queued request to completion; returns {rid: [token
+        ids]} (the prefill's token first).  The engine clock persists
+        across calls, so a ``max_steps``-bounded run can be resumed."""
+        results: dict = {}
+        steps = 0
+        while self.scheduler.has_work():
+            if max_steps is not None and steps >= max_steps:
+                break
+            now = self._now
+            t0 = time.perf_counter()
+            prefills = 0
+            for act in self.scheduler.admit(now):
+                self._admit_one(act)
+                prefills += 1
+                if act.is_finished():          # max_new == 1 or prompt-EOS
+                    results[act.request.rid] = self._finish(act.slot)
+            t_prefill = time.perf_counter() - t0
+
+            decoding = sorted(self.scheduler.active)
+            if not decoding:
+                if prefills:
+                    self._record_step(now, t0, (), prefills, 0, t_prefill, 0.0)
+                    self._now = now + 1
+                    steps += 1
+                    continue
+                nxt = self.scheduler.next_arrival()
+                if nxt is None:
+                    break
+                if nxt <= now:
+                    # the head has arrived, nothing runs that could free
+                    # blocks, and admission still refused it
+                    head = self.scheduler._pending[0]
+                    raise CacheExhausted(
+                        f"request {head.rid!r} (prompt {head.prompt_len} + "
+                        f"max_new {head.max_new_tokens}) can never be "
+                        f"admitted into {self.allocator.n_blocks} blocks")
+                self._now = max(now + 1, nxt)  # idle: jump to next arrival
+                continue
+
+            t1 = time.perf_counter()
+            self._grow_tables(decoding)
+            toks, self._caches = self._decode_p(
+                self.params, self._caches, self._toks, self._pos,
+                self._tables)
+            self._toks = toks
+            self._pos = self._pos + 1
+            toks_host = toks.tolist()          # one device->host transfer
+            t_decode = time.perf_counter() - t1
+            new_tokens = 0
+            for slot in decoding:
+                act = self.scheduler.active[slot]
+                act.tokens.append(toks_host[slot])
+                new_tokens += 1
+                self._host_pos[slot] += 1
+                if act.is_finished():
+                    results[act.request.rid] = self._finish(slot)
+            self._record_step(now, t0, decoding, prefills, new_tokens,
+                              t_prefill, t_decode)
+            self._now = now + 1
+            steps += 1
+        return results
+
+    def _record_step(self, now: int, t0: float, active_slots, prefills: int,
+                     new_tokens: int, prefill_seconds: float,
+                     decode_seconds: float) -> None:
+        self.telemetry.record_step(
+            step=now, seconds=time.perf_counter() - t0,
+            active_slots=active_slots, n_slots=self.n_slots,
+            blocks_in_use=self.allocator.n_in_use,
+            n_blocks=self.allocator.n_blocks, prefills=prefills,
+            new_tokens=new_tokens,
+            resident_bytes=self.allocator.resident_bytes(),
+            capacity_bytes=self.allocator.capacity_bytes(),
+            prefill_seconds=prefill_seconds,
+            decode_seconds=decode_seconds)

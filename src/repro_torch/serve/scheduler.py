@@ -1,0 +1,124 @@
+"""Request queue and slot scheduler for continuous batching.
+
+The port's copy of ``repro.serve.scheduler`` with worst-case pricing: the
+engine owns ``n_slots`` decode lanes, and queued requests are admitted into
+free lanes mid-stream, strictly first come first served, when the block
+allocator can reserve their worst case (``prompt_len + max_new_tokens``).
+A request admitted that way always decodes to its budget.  Arrivals are in
+engine steps (one step = one batched decode).
+"""
+
+from __future__ import annotations
+
+import heapq
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Optional
+
+from .cache import BlockAllocator
+
+
+@dataclass
+class Request:
+    """One serving request: prompt token ids and a decode budget."""
+
+    rid: object
+    prompt: object                   # int sequence of token ids
+    max_new_tokens: int
+    arrival: int = 0                 # engine step at which it exists
+    eos_id: Optional[int] = None     # stop early when this token is emitted
+
+    @property
+    def prompt_len(self) -> int:
+        return len(self.prompt)
+
+
+@dataclass
+class ActiveSlot:
+    """A request bound to a decode lane."""
+
+    request: Request
+    slot: int
+    admitted_at: int
+    tokens: list = field(default_factory=list)   # generated token ids
+    first_token_step: Optional[int] = None       # step the prefill finished
+
+    @property
+    def n_generated(self) -> int:
+        return len(self.tokens)
+
+    def is_finished(self) -> bool:
+        if self.n_generated >= self.request.max_new_tokens:
+            return True
+        eos = self.request.eos_id
+        return bool(eos is not None and self.tokens
+                    and self.tokens[-1] == eos)
+
+
+class SlotScheduler:
+    """FCFS admission of queued requests into free slots, each admission
+    reserving its worst case with the allocator.  Free slots form a
+    min-heap, so the lowest free slot is always reused first."""
+
+    def __init__(self, n_slots: int, allocator: BlockAllocator, kv_len: int):
+        self.n_slots = n_slots
+        self.allocator = allocator
+        self.kv_len = kv_len
+        self._free_slots: list[int] = list(range(n_slots))
+        self._pending: deque[Request] = deque()
+        self.active: dict[int, ActiveSlot] = {}
+        self.finished: list[ActiveSlot] = []
+        self.slot_admissions: dict[int, int] = {s: 0 for s in range(n_slots)}
+
+    def submit(self, request: Request) -> None:
+        """Queue a request after checking it can ever be served."""
+        worst = request.prompt_len + request.max_new_tokens
+        if worst > self.kv_len:
+            raise ValueError(
+                f"request {request.rid!r}: prompt {request.prompt_len} + "
+                f"max_new {request.max_new_tokens} exceeds kv_len "
+                f"{self.kv_len}")
+        if request.max_new_tokens < 1:
+            raise ValueError(f"request {request.rid!r}: max_new_tokens < 1")
+        if request.prompt_len < 1:
+            raise ValueError(f"request {request.rid!r}: empty prompt")
+        self._pending.append(request)
+
+    def admit(self, now: int) -> list[ActiveSlot]:
+        """Admit arrived requests into free slots, FCFS, until the first
+        one that has not arrived yet or does not fit."""
+        admitted: list[ActiveSlot] = []
+        while self._pending and self._free_slots:
+            req = self._pending[0]
+            if req.arrival > now:
+                break
+            reserve = req.prompt_len + req.max_new_tokens
+            if not self.allocator.can_allocate(req.prompt_len + 1, reserve):
+                break
+            self._pending.popleft()
+            slot = heapq.heappop(self._free_slots)
+            self.allocator.allocate(slot, req.prompt_len + 1,
+                                    reserve_tokens=reserve)
+            act = ActiveSlot(request=req, slot=slot, admitted_at=now)
+            self.active[slot] = act
+            self.slot_admissions[slot] += 1
+            admitted.append(act)
+        return admitted
+
+    def finish(self, slot: int) -> ActiveSlot:
+        """Retire the request in ``slot``: its blocks and lane are freed."""
+        act = self.active.pop(slot)
+        self.allocator.free_slot(slot)
+        heapq.heappush(self._free_slots, slot)
+        self.finished.append(act)
+        return act
+
+    def has_work(self) -> bool:
+        return bool(self._pending or self.active)
+
+    def next_arrival(self) -> Optional[int]:
+        """Arrival step of the queue head (None when empty)."""
+        return self._pending[0].arrival if self._pending else None
+
+    def max_slot_reuse(self) -> int:
+        return max(self.slot_admissions.values(), default=0)

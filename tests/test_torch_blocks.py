@@ -1,0 +1,165 @@
+"""The port's model blocks against ``repro.models.blocks`` on the CPU.
+
+Same weights and inputs (numpy, seeded) through the JAX function and its
+port, at the reduced TinyLlama size, in f32, atol 1e-5.  Covers RMSNorm,
+RoPE, attention layers with no cache, a prefill cache, dense decode and
+paged decode, the gated FFN, and the in-place paged write.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import blocks as jblocks
+from repro_torch import configs
+from repro_torch.models import blocks
+
+torch.set_num_threads(2)
+ATOL = 1e-5
+
+CFG = configs.get("tinyllama-1.1b").reduced()
+JCFG = jconfigs.get("tinyllama-1.1b").reduced()
+
+
+def _both(a):
+    return jnp.asarray(a), torch.from_numpy(np.array(a))
+
+
+def _attn_params(seed):
+    p = jblocks.init_attention(jax.random.PRNGKey(seed), JCFG, jnp.float32)
+    rng = np.random.default_rng(seed)
+    p["ln"] = jnp.asarray(rng.standard_normal(JCFG.d_model) * 0.1,
+                          jnp.float32)
+    return p, {k: torch.from_numpy(np.array(v)) for k, v in p.items()}
+
+
+def _close(got, exp, atol=ATOL):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    assert np.abs(got - np.asarray(exp)).max() < atol
+
+
+def test_rms_norm_matches_jax():
+    rng = np.random.default_rng(0)
+    jx, tx = _both(rng.standard_normal((2, 5, 64)).astype(np.float32) * 3)
+    js, ts = _both(rng.standard_normal(64).astype(np.float32) * 0.1)
+    _close(blocks.rms_norm(tx, ts, 1e-6), jblocks.rms_norm(jx, js, 1e-6))
+
+
+@pytest.mark.parametrize("batched_positions", [False, True])
+def test_apply_rope_matches_jax(batched_positions):
+    rng = np.random.default_rng(1)
+    jx, tx = _both(rng.standard_normal((3, 7, 4, 16)).astype(np.float32))
+    pos = rng.integers(0, 500, (3, 7) if batched_positions else (7,))
+    jp, tp = _both(pos.astype(np.int32))
+    _close(blocks.apply_rope(tx, tp, 10_000.0),
+           jblocks.apply_rope(jx, jp, 10_000.0))
+
+
+def test_attn_layer_without_cache_matches_jax():
+    jp, tp = _attn_params(2)
+    rng = np.random.default_rng(2)
+    jx, tx = _both(rng.standard_normal((2, 9, 64)).astype(np.float32))
+    jpos, tpos = _both(np.arange(9, dtype=np.int32))
+    jout, _ = jblocks.attn_layer(JCFG, jp, jx, local=False, positions=jpos)
+    for impl in ("kernel", "plain"):
+        tout, _ = blocks.attn_layer(CFG, tp, tx, local=False, positions=tpos,
+                                    impl=impl)
+        _close(tout, jout)
+
+
+def test_attn_layer_prefill_then_dense_decode_match_jax():
+    jp, tp = _attn_params(3)
+    rng = np.random.default_rng(3)
+    S, kv_len = 6, 16
+    jx, tx = _both(rng.standard_normal((1, S, 64)).astype(np.float32))
+    jpos, tpos = _both(np.arange(S, dtype=np.int32))
+    jc = jblocks.init_attn_cache(JCFG, 1, kv_len, False, jnp.float32)
+    tc = blocks.init_attn_cache(CFG, 1, kv_len, torch.float32, "cpu")
+    jout, jc = jblocks.attn_layer(JCFG, jp, jx, local=False, positions=jpos,
+                                  cache=jc)
+    tout, tc = blocks.attn_layer(CFG, tp, tx, local=False, positions=tpos,
+                                 cache=tc)
+    _close(tout, jout)
+    for key in ("k", "v"):
+        _close(tc[key], jc[key])
+    assert np.array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+
+    jy, ty = _both(rng.standard_normal((1, 1, 64)).astype(np.float32))
+    jd, td = _both(np.asarray(S, np.int32))
+    jout, jc = jblocks.attn_layer(JCFG, jp, jy, local=False, positions=jd,
+                                  cache=jc)
+    tout, tc = blocks.attn_layer(CFG, tp, ty, local=False, positions=td,
+                                 cache=tc)
+    _close(tout, jout)
+    for key in ("k", "v"):
+        _close(tc[key], jc[key])
+    assert np.array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+
+
+def test_attn_layer_paged_decode_matches_jax():
+    jp, tp = _attn_params(4)
+    rng = np.random.default_rng(4)
+    B, bs, width, n_pages = 3, 4, 4, 13
+    pools = rng.standard_normal((2, n_pages, bs, CFG.n_kv_heads,
+                                 CFG.head_dim)).astype(np.float32)
+    tables = np.array([[0, 1, 2, 12], [3, 4, 12, 12], [12, 12, 12, 12]],
+                      np.int32)                  # lane 2 is inactive
+    pos = np.array([9, 5, 40], np.int32)         # 40: past the table
+    jx, tx = _both(rng.standard_normal((B, 1, 64)).astype(np.float32))
+    jcache = {"k_pages": jnp.asarray(pools[0]),
+              "v_pages": jnp.asarray(pools[1])}
+    jout, jcache = jblocks.attn_layer(
+        JCFG, jp, jx, local=False, positions=jnp.asarray(pos),
+        cache=jcache, paged_tables=jnp.asarray(tables))
+    for impl in ("kernel", "plain"):
+        tcache = {"k_pages": torch.from_numpy(pools[0].copy()),
+                  "v_pages": torch.from_numpy(pools[1].copy())}
+        tout, tcache = blocks.attn_layer(
+            CFG, tp, tx, local=False, positions=torch.from_numpy(pos),
+            cache=tcache, impl=impl, paged_tables=torch.from_numpy(tables))
+        _close(tout[:2], jout[:2])                # active lanes
+        for key in ("k_pages", "v_pages"):        # scratch page aside
+            _close(tcache[key][:-1], jcache[key][:-1])
+
+
+def test_paged_write_in_place_and_scratch():
+    """Rows land at (table[pos // bs], pos % bs) of the very tensors passed
+    in; rows past the table's reach go to the last (scratch) page."""
+    rng = np.random.default_rng(5)
+    kp = torch.zeros(5, 4, 2, 16)
+    vp = torch.zeros(5, 4, 2, 16)
+    tables = torch.tensor([[2, 0], [1, 3]], dtype=torch.int32)
+    pos = torch.tensor([5, 9], dtype=torch.int32)   # lane 1: past 2 blocks
+    k = torch.from_numpy(rng.standard_normal((2, 1, 2, 16))
+                         .astype(np.float32))
+    v = k + 1
+    out_k, out_v = blocks.paged_write(kp, vp, tables, pos, k, v)
+    assert out_k is kp and out_v is vp
+    assert torch.equal(kp[0, 1], k[0, 0]) and torch.equal(vp[0, 1], v[0, 0])
+    assert torch.equal(kp[4, 1], k[1, 0])          # scratch page
+    jk, jv = jblocks.paged_write(
+        jnp.zeros((5, 4, 2, 16)), jnp.zeros((5, 4, 2, 16)),
+        jnp.asarray(tables.numpy()), jnp.asarray(pos.numpy()),
+        jnp.asarray(k.numpy()), jnp.asarray(v.numpy()))
+    assert np.array_equal(kp.numpy(), np.asarray(jk))
+    assert np.array_equal(vp.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_ffn_layer_matches_jax(act):
+    jcfg, cfg = JCFG.replace(ffn_act=act), CFG.replace(ffn_act=act)
+    jp = jblocks.init_ffn(jax.random.PRNGKey(6), jcfg, jnp.float32)
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    rng = np.random.default_rng(6)
+    jx, tx = _both(rng.standard_normal((2, 5, 64)).astype(np.float32))
+    _close(blocks.ffn_layer(cfg, tp, tx), jblocks.ffn_layer(jcfg, jp, jx))
+
+
+def test_local_layers_are_not_ported():
+    _, tp = _attn_params(7)
+    with pytest.raises(NotImplementedError):
+        blocks.attn_layer(CFG, tp, torch.zeros(1, 2, 64), local=True,
+                          positions=torch.arange(2, dtype=torch.int32))

@@ -1,0 +1,153 @@
+"""The port's copied allocator, store, scheduler and telemetry against the
+reference's: randomized churn with ``check()`` after every operation,
+identical block ids to ``repro.serve.cache.BlockAllocator`` for the same
+operations, typed failures, the torch ``PagedKVStore``, and FCFS
+admission with worst-case reservations."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.serve import cache as jcache
+from repro.serve import scheduler as jsched
+from repro_torch.serve.cache import (AllocatorInvariantError, BlockAllocator,
+                                     CacheConfig, CacheExhausted,
+                                     PagedKVStore)
+from repro_torch.serve import scheduler as psched
+from repro_torch.serve.scheduler import Request, SlotScheduler
+from repro_torch.runtime.telemetry import ServeTelemetry
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_allocator_churn_matches_reference(seed):
+    rng = np.random.default_rng(seed)
+    cfg = CacheConfig(block_size=4, n_blocks=24)
+    port = BlockAllocator(cfg)
+    ref = jcache.BlockAllocator(jcache.CacheConfig(block_size=4,
+                                                   n_blocks=24))
+    live: dict[int, list] = {}                  # slot -> [tokens, reserve]
+    for _ in range(300):
+        op = rng.integers(3)
+        slot = int(rng.integers(6))
+        if op == 0 and slot not in live:
+            n = int(rng.integers(1, 20))
+            reserve = n + int(rng.integers(0, 12))
+            ok = port.can_allocate(n, reserve)
+            assert ok == ref.can_allocate(n, reserve)
+            if ok:
+                assert port.allocate(slot, n, reserve_tokens=reserve) == \
+                    ref.allocate(slot, n, reserve_tokens=reserve)
+                live[slot] = [n, reserve]
+        elif op == 1 and slot in live:
+            tokens, reserve = live[slot]
+            grow = min(reserve, tokens + int(rng.integers(0, 6)))
+            assert port.extend(slot, grow) == ref.extend(slot, grow)
+            live[slot][0] = grow
+        elif op == 2 and slot in live:
+            assert port.free_slot(slot) == ref.free_slot(slot)
+            del live[slot]
+        port.check()
+        ref.check()
+        assert port.tables == ref.tables
+        assert port.n_available() == ref.n_available()
+        for s in live:
+            assert port.padded_table(s, 8) == ref.padded_table(s, 8)
+    for s in list(live):
+        port.free_slot(s)
+    port.check()
+    assert port.n_free == cfg.n_blocks
+
+
+def test_allocator_typed_failures():
+    alloc = BlockAllocator(CacheConfig(block_size=4, n_blocks=4))
+    alloc.allocate(0, 5, reserve_tokens=12)          # 2 blocks, 3 reserved
+    assert not alloc.can_allocate(5)                 # 1 left unreserved
+    with pytest.raises(CacheExhausted):
+        alloc.allocate(1, 5)
+    with pytest.raises(AllocatorInvariantError):
+        alloc.allocate(0, 1)                         # double allocate
+    with pytest.raises(AllocatorInvariantError):
+        alloc.extend(0, 3)                           # shrink
+    alloc.extend(0, 12)                              # inside the reservation
+    with pytest.raises(CacheExhausted):
+        alloc.extend(0, 20)                          # beyond it, pool empty
+    assert isinstance(CacheExhausted("x"), MemoryError)
+    assert not isinstance(AllocatorInvariantError("x"), MemoryError)
+    alloc.free_slot(0)
+    with pytest.raises(AllocatorInvariantError):
+        alloc.free_slot(0)                           # double free
+    alloc.check()
+
+
+def test_paged_store_roundtrip_and_residency():
+    cfg = CacheConfig(block_size=4, n_blocks=6)
+    store = PagedKVStore(cfg, n_layers=2, n_kv_heads=2, head_dim=16,
+                         device="cpu")
+    alloc = BlockAllocator(cfg, store)
+    table = alloc.allocate(0, 7)
+    rows = [torch.randn(2, 2, 16) for _ in range(7)]
+    for pos, r in enumerate(rows):
+        store.write_token(table, pos, r, -r)
+    k, v = store.gather_slot(table, 7)
+    assert k.shape == (2, 7, 2, 16)
+    for pos, r in enumerate(rows):
+        assert torch.equal(k[:, pos], r) and torch.equal(v[:, pos], -r)
+    assert store.block_bytes == 2 * (2 * 4 * 2 * 16 * 4)
+    assert alloc.resident_bytes() == 2 * store.block_bytes
+    assert alloc.capacity_bytes() == 6 * store.block_bytes
+    with pytest.raises(ValueError):
+        PagedKVStore.from_pools(cfg, torch.zeros(2, 5, 4, 2, 16),
+                                torch.zeros(2, 5, 4, 2, 16))
+
+
+def test_scheduler_admits_like_the_reference():
+    """Same trace through both schedulers: identical admissions (FCFS,
+    worst-case reservation, lowest free slot first) step by step."""
+    def run(mod_sched, alloc):
+        sched = mod_sched.SlotScheduler(3, alloc, kv_len=32)
+        for i, (n, new, arr) in enumerate([(5, 8, 0), (9, 20, 0),
+                                           (3, 4, 1), (12, 10, 1),
+                                           (7, 7, 2), (2, 3, 5)]):
+            sched.submit(mod_sched.Request(rid=i, prompt=list(range(n)),
+                                           max_new_tokens=new, arrival=arr))
+        log = []
+        for now in range(12):
+            log.append([(a.request.rid, a.slot) for a in sched.admit(now)])
+            for slot in sorted(sched.active):
+                if (now + slot) % 3 == 0:
+                    sched.finish(slot)
+        return log, sched.max_slot_reuse()
+
+    port = run(psched, BlockAllocator(CacheConfig(block_size=4,
+                                                  n_blocks=12)))
+    ref = run(jsched, jcache.BlockAllocator(jcache.CacheConfig(
+        block_size=4, n_blocks=12)))
+    assert port == ref
+
+
+def test_scheduler_rejects_requests_that_can_never_run():
+    sched = SlotScheduler(2, BlockAllocator(CacheConfig(4, 8)), kv_len=16)
+    with pytest.raises(ValueError, match="kv_len"):
+        sched.submit(Request(rid=0, prompt=[1] * 10, max_new_tokens=7))
+    with pytest.raises(ValueError, match="empty"):
+        sched.submit(Request(rid=1, prompt=[], max_new_tokens=2))
+    with pytest.raises(ValueError, match="max_new"):
+        sched.submit(Request(rid=2, prompt=[1], max_new_tokens=0))
+
+
+def test_telemetry_aggregates():
+    tel = ServeTelemetry()
+    tel.record_step(0, 0.5, (), 4, 3, 8, prefills=2, prefill_seconds=0.4)
+    tel.record_step(1, 0.1, (0, 1), 4, 4, 8, new_tokens=2,
+                    resident_bytes=100,
+                    decode_seconds=0.08)
+    assert tel.total_tokens() == 4
+    assert tel.tokens_per_sec() == pytest.approx(4 / 0.6)
+    assert tel.mean_prefill_ms() == pytest.approx(200.0)
+    assert tel.mean_decode_step_ms() == pytest.approx(80.0)
+    assert tel.peak_cache_pressure() == 0.5
+    assert tel.max_concurrency() == 2
+    assert tel.occupancy() == pytest.approx(0.25)
+    assert tel.peak_resident_bytes() == 100
