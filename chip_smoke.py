@@ -7,30 +7,43 @@ Phases, one JSON line each; the first failure ends the run with a non-zero
 exit code:
 
 1. device  — the card (``nvidia-smi`` name and power limit), torch, CUDA.
-2. build   — both CUDA kernels compiled from the repository's sources.
+2. build   — every CUDA kernel compiled from the repository's sources (one
+   ``nvcc`` per source, all started together).
 3. kernels — each kernel against its plain PyTorch version on the card, at
-   the main path's full-width shapes (H=32, KV=4, hd=64, block 16), ragged
-   context lengths up to 1024, prompt lengths that are not multiples of
-   16 or 128, Sq=1, a window case and a softcap case, with the JAX kernel
-   tests' bars: paged 1e-5 (f32), flash 2e-5 (f32), both 2e-2 (bf16).
-4. serve   — the main path: full-width TinyLlama-1.1B (random f32 weights
-   from a seeded generator) served by ``ContinuousEngine(paged=True,
-   impl="kernel")`` for 8 staggered requests, every request checked
-   against ``Engine(impl="plain")`` at B=1.  Launch counters are zeroed
-   just before the run and must read n_layers per prefill (flash) and per
-   decode step (paged).  A reduced model on small inputs is checked the
-   same way first.
-5. timing  — the same trace in bf16: tokens/s, mean decode step and
-   prefill, peak memory, and each kernel's time per launch at the main
-   path's shapes beside its plain version, its bound and, for flash, one
+   the main paths' full-width shapes and the JAX kernel tests' shapes, with
+   those tests' bars.  Attention (H=32, KV=4, hd=64, block 16): ragged
+   context lengths up to 1024, prompt lengths that are not multiples of 16
+   or 128, Sq=1, a window case and a softcap case; paged 1e-5 (f32), flash
+   2e-5 (f32), both 2e-2 (bf16).  SSD scan: the JAX test's four cases and
+   full-width mamba2-370m shapes (nh 32, hd 64, ns 128) at S = 17, 131,
+   200 and 512, each with and without an initial state, xs/B/C in f32 and
+   bf16; 1e-4 on y and on the final state.
+4. serve   — the two main paths, one after the other (each followed by
+   its timing, so that one path's weights never count in the other's
+   peak memory), each with every launch counter zeroed
+   just before it and read just after, every request checked against
+   ``Engine(impl="plain")`` at B=1 (identical tokens, or a plain-path
+   top-two margin under 1e-3 at the first divergence), a reduced model
+   first.  TinyLlama-1.1B (random f32 weights from a seeded generator)
+   served by ``ContinuousEngine(paged=True, impl="kernel")`` for 8
+   staggered requests: n_layers flash launches per prefill and paged
+   launches per decode step, no SSD launch.  Then mamba2-370m the same
+   way: n_layers SSD-scan launches per prefill, no attention launch, and
+   no state slot left in use.
+5. timing  — each trace in bf16: tokens/s, mean decode step and prefill,
+   peak memory, a repeat under ``torch.profiler`` (device time by kernel
+   name, the device's busy share, and each port kernel's device time per
+   launch on the path), and each kernel's time per launch at its path's
+   shapes (CUDA events around 50 back-to-back calls) beside its plain
+   version, its bound and, for flash, one
    ``scaled_dot_product_attention`` call (a yardstick; the port never
-   calls it).  A repeat of the trace under ``torch.profiler`` gives device
-   time by kernel name and the device's busy share.
+   calls it).
 
 Then the ``{"kernels": [...]}`` summary line, the card's
 ``name, power.limit`` line, and last ``{"ok": true, "device": ...}``.
-Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of device memory and
-989 TFLOP/s of dense bf16 tensor-core math.
+Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of device memory,
+989 TFLOP/s of dense bf16 tensor-core math and 67 TFLOP/s of f32 math
+outside the tensor cores (the SSD scan's arithmetic).
 """
 
 from __future__ import annotations
@@ -46,7 +59,9 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12
 ARCH = "tinyllama-1.1b"
+SSM_ARCH = "mamba2-370m"
 PROMPT_LENS = (17, 200, 45, 131, 77, 163, 29, 111)
 MAX_NEW = 32
 KV_LEN = 512
@@ -55,7 +70,9 @@ BLOCK = 16
 STAGGER = 2
 MARGIN = 1e-3
 TOL = {("paged", "float32"): 1e-5, ("flash", "float32"): 2e-5,
-       ("paged", "bfloat16"): 2e-2, ("flash", "bfloat16"): 2e-2}
+       ("paged", "bfloat16"): 2e-2, ("flash", "bfloat16"): 2e-2,
+       ("ssd", "float32"): 1e-4, ("ssd", "bfloat16"): 1e-4}
+SSD_CHUNK = 32          # rows per chunk of the SSD-scan kernel
 
 
 def emit(phase: str, **fields) -> None:
@@ -91,6 +108,11 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0)))
+
+
 # -- kernel inputs ------------------------------------------------------------
 
 def paged_inputs(gen, dev, dtype, B, H, KV, hd, bs, max_blocks, lens):
@@ -115,18 +137,50 @@ def flash_inputs(gen, dev, dtype, B, Sq, Skv, H, KV, hd):
     return q, k, v
 
 
+def ssd_inputs(gen, dev, dtype, B, S, nh, hd, ns):
+    """The recipe of the JAX kernel test's ``_inputs``: x ~ N(0, 1), dt =
+    softplus(N(0, 1)), A = -exp(0.3 N(0, 1)), B, C ~ N(0, 1/ns), D = 1."""
+    import torch
+    import torch.nn.functional as F
+    xs = torch.randn((B, S, nh, hd), generator=gen, device=dev)
+    dt = F.softplus(torch.randn((B, S, nh), generator=gen, device=dev))
+    A = -torch.exp(torch.randn((nh,), generator=gen, device=dev) * 0.3)
+    Bm = torch.randn((B, S, ns), generator=gen, device=dev) / ns ** 0.5
+    Cm = torch.randn((B, S, ns), generator=gen, device=dev) / ns ** 0.5
+    D = torch.ones((nh,), device=dev)
+    return xs.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype), D
+
+
+def ssd_cost(S, nh, hd, ns, x_bytes, seeded) -> tuple:
+    """(bytes, f32 flops) the SSD scan needs for one sequence: every input
+    read once (h0 when given), y and the state written once; the products
+    C B^T over the kernel's causal chunk pairs, M x, C h^T and the state
+    update."""
+    pairs = sum(n * (n + 1) // 2 for n in
+                [min(SSD_CHUNK, S - c) for c in range(0, S, SSD_CHUNK)])
+    nbytes = (S * nh * hd * x_bytes + S * nh * 4 + 2 * nh * 4
+              + 2 * S * ns * x_bytes + S * nh * hd * 4
+              + nh * hd * ns * 4 * (2 if seeded else 1))
+    flops = (2 * ns * pairs + 2 * nh * hd * pairs
+             + 4 * S * nh * hd * ns)
+    return nbytes, flops
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version; returns the worst error per
-    kernel at the main path's full-width f32 shapes."""
+    kernel at the main paths' full-width f32 shapes."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention import ref as pa_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     rows = []
-    main_err = {"paged_attention": 0.0, "flash_attention": 0.0}
+    main_err = {"paged_attention": 0.0, "flash_attention": 0.0,
+                "ssd_scan": 0.0}
     paged_cases = [
         # name, B, H, KV, hd, bs, max_blocks, lens, window, softcap
         ("main", 4, 32, 4, 64, 16, 64, [1, 17, 500, 1024], 0, 0.0),
@@ -194,6 +248,37 @@ def phase_kernels(dev) -> dict:
             if dname == "float32" and name.startswith(("prefill", "decode")):
                 main_err["flash_attention"] = max(
                     main_err["flash_attention"], err)
+    ssd_cases = [
+        # name, B, S, nh, hd, ns, plain chunk (the JAX test's CASES first)
+        ("jax_case0", 2, 128, 4, 16, 32, 32),
+        ("jax_case1", 1, 256, 2, 64, 128, 64),
+        ("jax_case2", 2, 64, 8, 32, 16, 64),
+        ("jax_case3_odd_nh", 1, 96, 3, 8, 8, 32),
+        ("main_17", 1, 17, 32, 64, 128, 256),
+        ("main_131", 1, 131, 32, 64, 128, 256),
+        ("main_200", 1, 200, 32, 64, 128, 256),
+        ("main_512", 1, 512, 32, 64, 128, 256),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for name, B, S, nh, hd, ns, chunk in ssd_cases:
+            for seeded in (False, True):
+                args = ssd_inputs(gen, dev, dtype, B, S, nh, hd, ns)
+                h0 = (torch.randn((B, nh, hd, ns), generator=gen,
+                                  device=dev) if seeded else None)
+                y, st = ssd_ops.ssd_scan(*args, init_state=h0)
+                torch.cuda.synchronize()
+                ye, ste = ssd_ref.reference(*args, chunk=chunk,
+                                            init_state=h0)
+                err = max((y - ye).abs().max().item(),
+                          (st - ste).abs().max().item())
+                tol = TOL[("ssd", dname)]
+                rows.append({"kernel": "ssd_scan", "case": name,
+                             "dtype": dname, "init_state": seeded,
+                             "max_abs_err": err, "tol": tol,
+                             "ok": err < tol})
+                if dname == "float32" and name.startswith("main"):
+                    main_err["ssd_scan"] = max(main_err["ssd_scan"], err)
     emit("kernels", cases=rows)
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
@@ -253,25 +338,35 @@ def hold_against_plain(cfg, params, prompts, results, dev, dtype,
     return rows
 
 
-def phase_serve(dev) -> dict:
-    import torch
-    from repro_torch import configs
+def launch_counters() -> dict:
+    """The kernel wrappers, by kernel name; each counts its launches."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return {"paged_attention": pa_ops.paged_attention,
+            "flash_attention": fa_ops.flash_attention,
+            "ssd_scan": ssd_ops.ssd_scan}
+
+
+def phase_serve(dev, arch: str) -> dict:
+    """One main path: the reduced model first, then ``arch`` at full width
+    with every launch counter zeroed just before the run and read just
+    after it."""
+    import torch
+    from repro_torch import configs
     from repro_torch.models import lm
 
-    # a reduced model on small inputs first
-    small = configs.get(ARCH).reduced()
+    small = configs.get(arch).reduced()
     sgen = torch.Generator(device=dev).manual_seed(7)
     sparams = lm.init_params(small, sgen, dev, torch.float32)
     sprompts = make_prompts(small, dev, seed=8)[:4]
     _, sres = serve_trace(small, sparams, sprompts, dev, torch.float32, 12)
     srows = hold_against_plain(small, sparams, sprompts, sres, dev,
                                torch.float32, 12)
-    emit("serve_reduced", requests=srows)
+    emit("serve_reduced", arch=small.name, requests=srows)
     check(all(r["ok"] for r in srows), f"reduced model diverged: {srows}")
 
-    cfg = configs.get(ARCH)
+    cfg = configs.get(arch)
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     params = lm.init_params(cfg, gen, dev, torch.float32)
@@ -280,28 +375,35 @@ def phase_serve(dev) -> dict:
     init_s = time.perf_counter() - t0
     prompts = make_prompts(cfg, dev, seed=1)
 
-    pa_ops.paged_attention.launches = 0
-    fa_ops.flash_attention.launches = 0
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
     eng, results = serve_trace(cfg, params, prompts, dev, torch.float32)
-    launches = {"paged_attention": pa_ops.paged_attention.launches,
-                "flash_attention": fa_ops.flash_attention.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
 
     tel = eng.telemetry
     decode_steps = sum(1 for s in tel.steps if s.active_slots)
     prefills = sum(s.prefills for s in tel.steps)
-    expect = {"paged_attention": cfg.n_layers * decode_steps,
-              "flash_attention": cfg.n_layers * prefills}
+    n_attn = sum(1 for s in cfg.layers() if s.mixer == "global")
+    n_ssd = sum(1 for s in cfg.layers() if s.mixer == "ssd")
+    expect = {"paged_attention": n_attn * decode_steps,
+              "flash_attention": n_attn * prefills,
+              "ssd_scan": n_ssd * prefills}
     rows = hold_against_plain(cfg, params, prompts, results, dev,
                               torch.float32)
     emit("serve", arch=cfg.name, dtype="float32", params=n_params,
          init_seconds=init_s, requests=rows, prefills=prefills,
          decode_steps=decode_steps, launches=launches,
-         expected_launches=expect)
+         expected_launches=expect,
+         peak_resident_bytes_by_group=tel.peak_resident_bytes_by_group(),
+         state_slots_in_use=eng.allocator.state_slots_in_use())
     check(prefills == len(prompts), f"{prefills} prefills")
     check(launches == expect, f"launches {launches} != expected {expect}")
     check(all(r["ok"] for r in rows), f"tokens diverged: {rows}")
     eng.allocator.check()
     check(eng.allocator.n_in_use == 0, "blocks leaked after the run")
+    check(eng.allocator.state_slots_in_use() == 0,
+          "state slots left in use after the run")
     return {"params": params, "prompts": prompts, "launches": launches,
             "cfg": cfg}
 
@@ -329,16 +431,22 @@ def profile_serve(cfg, params, prompts, dev, untraced_wall: float) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def device_us(evt) -> float:
-        return float(getattr(evt, "self_device_time_total",
-                             getattr(evt, "self_cuda_time_total", 0.0)))
-
     # kernel events only: the operator events that launched them carry
     # the same device time again
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and device_us(e) > 0]
     busy_us = sum(device_us(e) for e in events)
     top = sorted(events, key=device_us, reverse=True)[:12]
+    # the port's kernels by name: their device time per launch on this
+    # path, without the host's cost of enqueueing them that CUDA events
+    # around back-to-back calls include
+    ours = {}
+    for name in launch_counters():
+        hits = [e for e in events if f"{name}_kernel" in e.key]
+        calls = sum(e.count for e in hits)
+        if calls:
+            ours[name] = {"calls": calls, "device_ms_per_call":
+                          sum(device_us(e) for e in hits) / calls / 1e3}
     return {
         "traced_wall_seconds": wall,
         "tracing_overhead_seconds": wall - untraced_wall,
@@ -349,25 +457,26 @@ def profile_serve(cfg, params, prompts, dev, untraced_wall: float) -> dict:
         "device_busy_share_untraced": busy_us / 1e6 / untraced_wall,
         "top_kernels": [{"name": e.key[:80], "calls": e.count,
                          "device_ms": device_us(e) / 1e3} for e in top],
+        "port_kernels": ours,
     }
 
 
-def phase_timing(dev, served: dict) -> dict:
+def time_serve(dev, served: dict) -> tuple:
+    """The path's trace in bf16 (the f32 weights of phase ``serve`` cast,
+    the float32-only SSD leaves kept): tokens/s, mean decode step and
+    prefill, peak memory, and a profiled repeat.  Returns (serve metrics,
+    bf16 params)."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.kernels.paged_attention import ref as pa_ref
+    from repro_torch.convert import F32_LEAVES
 
     cfg, prompts = served["cfg"], served["prompts"]
 
     def to_bf16(tree):
         return {k: to_bf16(v) if isinstance(v, dict)
-                else v.to(torch.bfloat16) for k, v in tree.items()}
+                else v if k in F32_LEAVES else v.to(torch.bfloat16)
+                for k, v in tree.items()}
 
-    params = to_bf16(served["params"])
-    del served["params"]
+    params = to_bf16(served.pop("params"))
     torch.cuda.empty_cache()
     serve_trace(cfg, params, prompts[:2], dev, torch.bfloat16, 4)  # warm-up
     torch.cuda.synchronize()
@@ -384,9 +493,30 @@ def phase_timing(dev, served: dict) -> dict:
              "mean_prefill_ms": tel.mean_prefill_ms(),
              "max_memory_allocated_bytes":
                  torch.cuda.max_memory_allocated(dev)}
-
     serve["profile"] = profile_serve(cfg, params, prompts, dev, wall)
+    return serve, params
 
+
+def set_bound(row: dict, flops_per_s: float) -> dict:
+    t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = row["flops"] / flops_per_s * 1e3
+    row["bound_ms"] = max(t_bytes, t_ops)
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return row
+
+
+def phase_timing(dev, served: dict) -> dict:
+    """TinyLlama's path: the bf16 trace and both attention kernels."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+
+    cfg = served["cfg"]
+    serve, params = time_serve(dev, served)
+    del params
     gen = torch.Generator(device=dev).manual_seed(99)
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bf = torch.bfloat16
@@ -427,15 +557,49 @@ def phase_timing(dev, served: dict) -> dict:
         "bytes": f_bytes, "flops": f_flops,
     }
     for row in (paged, flash):
-        t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = row["flops"] / BF16_FLOPS_PER_S * 1e3
-        row["bound_ms"] = max(t_bytes, t_ops)
-        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        set_bound(row, BF16_FLOPS_PER_S)
     emit("timing", arch=cfg.name, dtype="bfloat16", serve=serve,
          launches_bf16={"paged_attention": pa_ops.paged_attention.launches,
                         "flash_attention": fa_ops.flash_attention.launches},
          paged_attention=paged, flash_attention=flash)
     return {"paged_attention": paged, "flash_attention": flash}
+
+
+def phase_timing_ssm(dev, served: dict) -> dict:
+    """mamba2-370m's path: the bf16 trace and the SSD-scan kernel at each
+    of the trace's prompt shapes (one prefill's call: bf16 x/B/C, f32 dt,
+    the fresh cache's zero state), the 131-row prompt as the summary
+    row."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    cfg = served["cfg"]
+    serve, params = time_serve(dev, served)
+    del params
+    gen = torch.Generator(device=dev).manual_seed(98)
+    nh, hd, ns = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    by_len = []
+    for S in PROMPT_LENS:
+        args = ssd_inputs(gen, dev, torch.bfloat16, 1, S, nh, hd, ns)
+        h0 = torch.zeros((1, nh, hd, ns), device=dev)
+        nbytes, flops = ssd_cost(S, nh, hd, ns, 2, seeded=True)
+        row = {"S": S,
+               "ms": time_ms(lambda: ssd_ops.ssd_scan(*args, init_state=h0)),
+               "bytes": nbytes, "flops": flops}
+        if S == PROMPT_LENS[3]:
+            row["plain_ms"] = time_ms(lambda: ssd_ref.reference(
+                *args, chunk=cfg.ssm_chunk, init_state=h0))
+        by_len.append(set_bound(row, F32_FLOPS_PER_S))
+    main = dict(next(r for r in by_len if r["S"] == PROMPT_LENS[3]))
+    main.update(shape={"B": 1, "S": main.pop("S"), "nh": nh, "hd": hd,
+                       "ns": ns, "x_dtype": "bfloat16",
+                       "init_state": True},
+                library_ms=None)
+    emit("timing", arch=cfg.name, dtype="bfloat16", serve=serve,
+         launches_bf16={"ssd_scan": ssd_ops.ssd_scan.launches},
+         ssd_scan=main, ssd_scan_by_prompt=by_len)
+    return {"ssd_scan": main}
 
 
 def main() -> int:
@@ -476,11 +640,19 @@ def main() -> int:
 
         phase = "kernels"
         errs = phase_kernels(dev)
+        # one path after the other, so that neither path's weights count
+        # in the other's peak memory
         phase = "serve"
-        served = phase_serve(dev)
-        launches = served["launches"]
+        served = phase_serve(dev, ARCH)
         phase = "timing"
         timing = phase_timing(dev, served)
+        phase = "serve"
+        served_ssm = phase_serve(dev, SSM_ARCH)
+        phase = "timing"
+        timing.update(phase_timing_ssm(dev, served_ssm))
+        # each kernel's launches on the path that runs it
+        launches = {**served["launches"],
+                    "ssd_scan": served_ssm["launches"]["ssd_scan"]}
     except Exception as exc:  # report which phase failed, then fail
         traceback.print_exc()
         emit(phase, ok=False, error=f"{type(exc).__name__}: {exc}")
@@ -492,6 +664,7 @@ def main() -> int:
             "src/repro/kernels/paged_attention/paged_attention.py:95",
         "flash_attention":
             "src/repro/kernels/flash_attention/flash_attention.py:90",
+        "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:82",
     }
     summary = [{
         "name": name, "route": "cuda", "source": src.format(name),
@@ -501,7 +674,7 @@ def main() -> int:
         "bound_ms": timing[name]["bound_ms"],
         "bound_by": timing[name]["bound_by"],
         "library_ms": timing[name]["library_ms"],
-    } for name in ("paged_attention", "flash_attention")]
+    } for name in ("paged_attention", "flash_attention", "ssd_scan")]
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,10 @@ from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig
 
-from . import tinyllama_1_1b
+from . import mamba2_370m, tinyllama_1_1b
 
 _REGISTRY: dict[str, ModelConfig] = {
-    mod.CONFIG.name: mod.CONFIG for mod in (tinyllama_1_1b,)}
+    mod.CONFIG.name: mod.CONFIG for mod in (tinyllama_1_1b, mamba2_370m)}
 
 
 def get(name: str) -> ModelConfig:

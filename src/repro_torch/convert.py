@@ -4,7 +4,9 @@
 arrays — ``repro.models.lm.init_params`` output after
 ``jax.tree.map(np.asarray, ...)`` — into the port's tree of tensors under
 the same keys.  Every leaf goes through float32 first: a bf16 leaf
-converts exactly, and a float32 leaf is unchanged.  This module imports
+converts exactly, and a float32 leaf is unchanged.  The SSD leaves that
+the reference keeps in float32 whatever the model's dtype (``A_log``,
+``D``, ``dt_bias``) stay float32.  This module imports
 neither JAX nor the JAX package; the caller does the numpy conversion.
 """
 
@@ -14,6 +16,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+
+# leaves the reference creates in float32 whatever the model's dtype
+F32_LEAVES = frozenset({"A_log", "D", "dt_bias"})
 
 
 def params_from_numpy(cfg, tree: dict, device=None,
@@ -31,10 +36,11 @@ def params_from_numpy(cfg, tree: dict, device=None,
         raise ValueError(f"parameter keys {sorted(tree)} do not match "
                          f"{cfg.name}'s {sorted(want)}")
 
-    def convert(node):
+    def convert(node, key=""):
         if isinstance(node, dict):
-            return {k: convert(v) for k, v in node.items()}
+            return {k: convert(v, k) for k, v in node.items()}
         arr = np.asarray(node).astype(np.float32)
-        return torch.from_numpy(arr).to(device=device, dtype=dtype)
+        leaf_dtype = torch.float32 if key in F32_LEAVES else dtype
+        return torch.from_numpy(arr).to(device=device, dtype=leaf_dtype)
 
     return convert(tree)

@@ -25,6 +25,7 @@ BUILD_DIR = REPO_ROOT / "build" / "kernels"
 SOURCES = {
     "flash_attention": KERNELS_DIR / "flash_attention" / "flash_attention.cu",
     "paged_attention": KERNELS_DIR / "paged_attention" / "paged_attention.cu",
+    "ssd_scan": KERNELS_DIR / "ssd_scan" / "ssd_scan.cu",
 }
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

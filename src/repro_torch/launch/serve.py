@@ -1,11 +1,15 @@
 """Serving launcher of the port: static batch, or continuous batching over
-the paged KV cache.
+the paged KV cache (and, for mamba2, per-lane recurrent state slabs).
 
 Usage (on the CUDA card; ``--device cpu`` runs the plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --continuous --paged
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+        --continuous --paged
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --reduced --batch 4 --prompt-len 16 --max-new 32 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+        --reduced --continuous --paged --device cpu
 
 Weights are random, drawn from ``--seed`` with a ``torch.Generator`` on
 the serving device; prompts come from the same generator.
@@ -68,11 +72,15 @@ def _continuous(args, cfg, params, gen, device, dtype):
           f"prefill={tel.mean_prefill_ms():.1f}ms "
           f"decode_step={tel.mean_decode_step_ms():.1f}ms "
           f"slot_reuse={eng.scheduler.max_slot_reuse()}")
+    by_group = " ".join(f"{g}={b / 1024:.0f}KiB" for g, b in
+                        tel.peak_resident_bytes_by_group().items())
     print(f"[serve-cb] paged: peak_resident="
           f"{tel.peak_resident_bytes() / 1024:.0f}KiB / "
           f"{eng.allocator.capacity_bytes() / 1024:.0f}KiB "
           f"({len(eng.allocator.stores)} layer pools, "
-          f"block_size={eng.block_size})")
+          f"block_size={eng.block_size}, "
+          f"{eng.allocator.layout.state_slots} state slots) "
+          f"peak by group: {by_group}")
     if results:
         print("first request:", results[0])
 

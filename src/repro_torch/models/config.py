@@ -154,6 +154,15 @@ class ModelConfig:
         return ((self.vocab_size + mult - 1) // mult) * mult
 
     @property
+    def d_inner(self) -> int:
+        """SSD inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
+
+    @property
     def q_dim(self) -> int:
         return self.n_heads * self.head_dim
 

@@ -1,40 +1,45 @@
-"""Model assembly for decoder-only, global-attention, dense-FFN archs:
-parameter init, caches (dense and paged) and ``forward`` in prefill and
-decode modes.
+"""Model assembly for decoder-only archs built of global-attention +
+dense-FFN layers and Mamba-2 SSD layers: parameter init, caches (dense and
+paged) and ``forward`` in prefill and decode modes.
 
 A port of the matching subset of ``repro.models.lm``.  Parameters and
-caches keep the reference's tree — ``seg{i}/c{j}/{attn,ffn}/...`` with a
-stacked leading layer axis per segment — and ``_run_segment`` walks that
+caches keep the reference's tree — ``seg{i}/c{j}/{attn,ffn,ssd}/...`` with
+a stacked leading layer axis per segment — and ``_run_segment`` walks that
 axis with a Python loop where the reference scans.  Cache writes happen in
-place (see ``blocks``).
+place (see ``blocks``); SSD layers return their new conv tail and state,
+and this module writes them into the cache tree (or, in a paged decode
+step, hands them to ``freeze_state_lanes``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.device import resolve_device
 
-from . import blocks
+from . import blocks, ssm
 from .blocks import rms_norm, softcap
 from .config import LayerSpec, ModelConfig, Segment
 
 # serving cache group per mixer kind (the reference's mapping)
 _MIXER_GROUP = {"global": "paged", "mla": "paged", "local": "window",
                 "ssd": "recurrent", "rglru": "recurrent"}
+# layer kinds the port runs
+_PORTED = frozenset({"global+dense", "ssd+none"})
+_STATE_MIXERS = ("ssd",)
 
 
 def unsupported_reason(cfg: ModelConfig) -> Optional[str]:
     """Why the port cannot run ``cfg`` yet, or None: it runs decoder-only
-    stacks of global attention and dense FFN layers."""
+    stacks of global-attention + dense-FFN layers and SSD layers."""
     if cfg.n_enc_layers:
         return "encoder-decoder archs are not ported yet"
     if cfg.frontend:
         return "modality-frontend archs are not ported yet"
-    other = sorted({s.key for s in cfg.layers()} - {"global+dense"})
+    other = sorted({s.key for s in cfg.layers()} - _PORTED)
     if other:
         return f"layer kinds {other} are not ported yet"
     return None
@@ -50,11 +55,25 @@ def _check_supported(cfg: ModelConfig) -> None:
 # init
 # =============================================================================
 
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
+                repeats: int, dtype, device) -> dict:
+    """One cycle entry's parameters, stacked to ``[repeats, ...]``."""
+    p: dict = {}
+    if spec.mixer == "global":
+        p["attn"] = blocks.init_attention(gen, cfg, repeats, dtype, device)
+    elif spec.mixer == "ssd":
+        p["ssd"] = ssm.init_ssd(gen, cfg, repeats, dtype, device)
+    if spec.ffn == "dense":
+        p["ffn"] = blocks.init_ffn(gen, cfg, repeats, dtype, device)
+    return p
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
                 dtype=torch.bfloat16) -> dict:
     """Random parameters with the reference's distributions: embed
-    N(0, 0.02^2), dense weights N(0, 1/d_in), norm scales zero.  ``device``
-    defaults to the CUDA card (and must be that of ``generator``)."""
+    N(0, 0.02^2), dense weights N(0, 1/d_in), norm scales zero (SSD
+    leaves as ``ssm.init_ssd``).  ``device`` defaults to the CUDA card
+    (and must be that of ``generator``)."""
     _check_supported(cfg)
     device = resolve_device(device)
     d = cfg.d_model
@@ -69,12 +88,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
             generator, (d, cfg.padded_vocab), dtype, device)
     for si, seg in enumerate(cfg.segments()):
         params[f"seg{si}"] = {
-            f"c{ci}": {
-                "attn": blocks.init_attention(generator, cfg, seg.repeats,
-                                              dtype, device),
-                "ffn": blocks.init_ffn(generator, cfg, seg.repeats, dtype,
-                                       device),
-            } for ci, _ in enumerate(seg.cycle)}
+            f"c{ci}": _init_layer(generator, cfg, spec, seg.repeats, dtype,
+                                  device)
+            for ci, spec in enumerate(seg.cycle)}
     return params
 
 
@@ -86,38 +102,57 @@ def _stacked(leaf: dict, repeats: int) -> dict:
 def init_cache(cfg: ModelConfig, batch: int, kv_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """Dense decode/prefill cache mirroring the segment structure of the
-    params: per layer ``{"attn": {"k", "v": [B, kv_len, KV, hd],
-    "pos": [kv_len]}}``, stacked along a leading layer axis."""
+    params, stacked along a leading layer axis: per global layer
+    ``{"attn": {"k", "v": [B, kv_len, KV, hd], "pos": [kv_len]}}``, per SSD
+    layer ``{"ssd": {"conv", "state"}}`` (``ssm.init_ssd_cache``)."""
     _check_supported(cfg)
     device = resolve_device(device)
+
+    def layer_cache(spec: LayerSpec) -> dict:
+        if spec.mixer == "ssd":
+            return {"ssd": ssm.init_ssd_cache(cfg, batch, dtype, device)}
+        return {"attn": blocks.init_attn_cache(cfg, batch, kv_len, dtype,
+                                               device)}
+
     return {f"seg{si}": {
-        f"c{ci}": {"attn": _stacked(blocks.init_attn_cache(
-            cfg, batch, kv_len, dtype, device), seg.repeats)}
-        for ci, _ in enumerate(seg.cycle)}
+        f"c{ci}": {k: _stacked(v, seg.repeats)
+                   for k, v in layer_cache(spec).items()}
+        for ci, spec in enumerate(seg.cycle)}
         for si, seg in enumerate(cfg.segments())}
 
 
 def serve_groups(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     """Per-layer serving report: cache group -> layer indices ("paged":
-    global attention behind block tables; "window" and "recurrent" are
-    not served by the port yet)."""
+    global attention behind block tables; "recurrent": O(1) per-slot scan
+    state; "window" is not served by the port yet)."""
     out: dict[str, list[int]] = {"paged": [], "window": [], "recurrent": []}
     for li, spec in enumerate(cfg.layers()):
         out[_MIXER_GROUP[spec.mixer]].append(li)
     return {k: tuple(v) for k, v in out.items()}
 
 
-def init_paged_caches(cfg: ModelConfig, n_pages: int, block_size: int,
-                      dtype=torch.bfloat16, device=None) -> dict:
-    """Paged decode cache: per global-attention layer a pair of
-    ``[n_pages, block_size, KV, hd]`` K/V pools (no slot axis: lanes are
-    carved out by block tables), stacked to ``[repeats, ...]``."""
+def init_paged_caches(cfg: ModelConfig, n_slots: int, n_pages: int,
+                      block_size: int, dtype=torch.bfloat16,
+                      device=None) -> dict:
+    """Paged decode cache, stacked to ``[repeats, ...]`` like
+    ``init_cache``: per global-attention layer a pair of ``[n_pages,
+    block_size, KV, hd]`` K/V pools (no slot axis: lanes are carved out by
+    block tables), per SSD layer slot-stacked recurrent state ``[repeats,
+    n_slots, ...]`` (one lane per slot, no blocks)."""
     _check_supported(cfg)
     device = resolve_device(device)
+
+    def leaf(spec: LayerSpec) -> dict:
+        if spec.mixer == "ssd":
+            return {"ssd": ssm.init_ssd_cache(cfg, n_slots, dtype, device)}
+        return {"attn": blocks.init_paged_attn_cache(cfg, n_pages,
+                                                     block_size, dtype,
+                                                     device)}
+
     return {f"seg{si}": {
-        f"c{ci}": {"attn": _stacked(blocks.init_paged_attn_cache(
-            cfg, n_pages, block_size, dtype, device), seg.repeats)}
-        for ci, _ in enumerate(seg.cycle)}
+        f"c{ci}": {k: _stacked(v, seg.repeats)
+                   for k, v in leaf(spec).items()}
+        for ci, spec in enumerate(seg.cycle)}
         for si, seg in enumerate(cfg.segments())}
 
 
@@ -129,9 +164,58 @@ def _cache_entries(cfg: ModelConfig, caches: dict):
 
 def paged_cache_leaves(cfg: ModelConfig, caches: dict) -> list[tuple]:
     """(group, (a_key, b_key), leaf) for every physical pool leaf, in a
-    fixed order; the engine binds one ``PagedKVStore`` per leaf."""
+    fixed order; the engine binds one ``PagedKVStore`` per leaf.  Recurrent
+    state leaves are not listed (see ``state_cache_leaves``)."""
     return [("global", ("k_pages", "v_pages"), entry["attn"])
-            for _, entry in _cache_entries(cfg, caches)]
+            for spec, entry in _cache_entries(cfg, caches)
+            if spec.mixer == "global"]
+
+
+def state_cache_leaves(cfg: ModelConfig, caches: dict) -> list[dict]:
+    """Slot-stacked recurrent state leaves ([repeats, n_slots, ...]
+    tensors), in a fixed order."""
+    return [entry[spec.mixer] for spec, entry in _cache_entries(cfg, caches)
+            if spec.mixer in _STATE_MIXERS]
+
+
+def state_bytes_per_slot(cfg: ModelConfig, caches: dict) -> int:
+    """Device bytes one decode lane pins in recurrent state leaves."""
+    return sum(t.numel() // t.shape[1] * t.element_size()
+               for leaf in state_cache_leaves(cfg, caches)
+               for t in leaf.values())
+
+
+def _scatter_state(full: dict, one: dict, slot: int) -> None:
+    """Copy a batch-1 state leaf (``[repeats, 1, ...]`` tensors) into lane
+    ``slot`` of the slot-stacked leaf (``[repeats, n_slots, ...]``), in
+    place."""
+    for k, t in full.items():
+        t[:, slot].copy_(one[k][:, 0])
+
+
+def freeze_state_lanes(cfg: ModelConfig, caches: dict, updates: dict,
+                       active: torch.Tensor) -> dict:
+    """Write a batched paged decode step's new recurrent state into the
+    slot-stacked slabs, for the active lanes only, in place.
+
+    ``updates`` maps ``(segment, cycle entry, repeat)`` to the new leaves
+    (``{"conv": [n_slots, ...], "state": [n_slots, ...]}``) a layer computed
+    for every lane; ``active``: [n_slots] bool on the device.  The batched
+    step runs every lane, retired ones included, and a recurrent layer
+    would fold those lanes' garbage tokens into their slabs (attention
+    lanes are safe: their writes go through null table rows).  Each slab
+    is read and written through the same view, by one select on the
+    device: no slab is copied aside and the host never waits.  Returns
+    ``caches``."""
+    segs = cfg.segments()
+    for (si, ci, r), new in updates.items():
+        mixer = segs[si].cycle[ci].mixer
+        leaf = caches[f"seg{si}"][f"c{ci}"][mixer]
+        for k, t in new.items():
+            slab = leaf[k][r]
+            keep = active.reshape((-1,) + (1,) * (slab.dim() - 1))
+            torch.where(keep, t.to(slab.dtype), slab, out=slab)
+    return caches
 
 
 def _scatter_rows(pages, row_tbl, cpos, rows, *, block_size: int,
@@ -150,16 +234,19 @@ def _scatter_rows(pages, row_tbl, cpos, rows, *, block_size: int,
 
 
 def insert_paged_prompt(cfg: ModelConfig, caches: dict, single: dict,
-                        tables: dict, *, block_size: int,
+                        tables: dict, slot: int, *, block_size: int,
                         null_block: int) -> dict:
     """Scatter a dense single-request prefill cache (``init_cache(cfg, 1,
-    kv_len)`` after a prefill) into the paged pools, in place: every row is
-    written to the physical block its group's table row
-    (``tables["global"]``, [W]) names, at its absolute position; rows whose
-    position is -1 go to the null page.  Other lanes' blocks are untouched.
-    Returns ``caches``."""
-    for (_, entry), (_, one) in zip(_cache_entries(cfg, caches),
-                                    _cache_entries(cfg, single)):
+    kv_len)`` after a prefill) into the paged tree, in place: attention
+    rows go to the physical blocks the lane's table row
+    (``tables["global"]``, [W]) names, at their absolute positions (rows
+    whose position is -1 go to the null page); SSD conv tail and state go
+    into lane ``slot``.  Other lanes are untouched.  Returns ``caches``."""
+    for (spec, entry), (_, one) in zip(_cache_entries(cfg, caches),
+                                       _cache_entries(cfg, single)):
+        if spec.mixer in _STATE_MIXERS:
+            _scatter_state(entry[spec.mixer], one[spec.mixer], slot)
+            continue
         leaf, sl = entry["attn"], one["attn"]
         cpos = sl["pos"][0]                 # identical across repeats
         for pool, rows in (("k_pages", sl["k"]), ("v_pages", sl["v"])):
@@ -172,6 +259,9 @@ def insert_paged_prompt(cfg: ModelConfig, caches: dict, single: dict,
 # forward
 # =============================================================================
 
+StateSink = Callable[[tuple, dict], None]
+
+
 def _index(tree: dict, r: int) -> dict:
     """Layer ``r`` of a stacked tree (views, so writes reach the stack)."""
     return {k: _index(v, r) if isinstance(v, dict) else v[r]
@@ -180,23 +270,39 @@ def _index(tree: dict, r: int) -> dict:
 
 def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, h, *,
                  positions, cache: Optional[dict], impl: str,
-                 paged_tables=None):
-    """One global-attention + dense-FFN layer; returns the new residual."""
-    h, _ = blocks.attn_layer(cfg, p["attn"], h, local=False,
-                             positions=positions,
-                             cache=cache["attn"] if cache else None,
-                             impl=impl, paged_tables=paged_tables)
-    return blocks.ffn_layer(cfg, p["ffn"], h)
+                 paged_tables=None, key: tuple = (),
+                 state_sink: Optional[StateSink] = None):
+    """One layer (global attention + dense FFN, or SSD); returns the new
+    residual."""
+    if spec.mixer == "ssd":
+        sc = cache["ssd"] if cache else None
+        h, new = ssm.ssd_layer(cfg, p["ssd"], h, cache=sc, impl=impl)
+        if new is not None:
+            if state_sink is not None and h.shape[1] == 1:
+                state_sink(key, new)
+            else:
+                for k, t in new.items():
+                    sc[k].copy_(t)
+    else:
+        h, _ = blocks.attn_layer(cfg, p["attn"], h, local=False,
+                                 positions=positions,
+                                 cache=cache["attn"] if cache else None,
+                                 impl=impl, paged_tables=paged_tables)
+    if spec.ffn == "dense":
+        h = blocks.ffn_layer(cfg, p["ffn"], h)
+    return h
 
 
-def _run_segment(cfg: ModelConfig, seg: Segment, seg_p: dict, h, *,
-                 positions, seg_cache, impl: str, paged_tables=None):
+def _run_segment(cfg: ModelConfig, si: int, seg: Segment, seg_p: dict, h,
+                 *, positions, seg_cache, impl: str, paged_tables=None,
+                 state_sink: Optional[StateSink] = None):
     for r in range(seg.repeats):
         for ci, spec in enumerate(seg.cycle):
             lc = _index(seg_cache[f"c{ci}"], r) if seg_cache else None
             h = _apply_layer(cfg, spec, _index(seg_p[f"c{ci}"], r), h,
                              positions=positions, cache=lc, impl=impl,
-                             paged_tables=paged_tables)
+                             paged_tables=paged_tables, key=(si, ci, r),
+                             state_sink=state_sink)
     return h
 
 
@@ -204,14 +310,18 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             cache: Optional[dict] = None, mode: str = "prefill",
             impl: str = "kernel",
-            paged_tables: Optional[torch.Tensor] = None) -> tuple:
+            paged_tables: Optional[torch.Tensor] = None,
+            state_sink: Optional[StateSink] = None) -> tuple:
     """Returns (logits [B, S, padded_vocab], cache).
 
     tokens: [B, S] (decode: [B, 1]).  positions: [S] int32 absolute
     positions (default ``arange(S)``); decode: a 0-d tensor with a dense
     cache, or [B] per-lane positions with a paged cache from
     ``init_paged_caches`` and its ``paged_tables`` [B, max_blocks].
-    ``cache`` is updated in place and returned."""
+    ``cache`` is updated in place and returned.  ``state_sink(key,
+    leaves)``, when given, receives each recurrent layer's new decode state
+    instead of the cache (``key`` = (segment, cycle entry, repeat)): a
+    paged decode step passes it on to ``freeze_state_lanes``."""
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
     _check_supported(cfg)
@@ -225,10 +335,11 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                      else torch.zeros((), dtype=torch.int32, device=h.device))
 
     for si, seg in enumerate(cfg.segments()):
-        h = _run_segment(cfg, seg, params[f"seg{si}"], h,
+        h = _run_segment(cfg, si, seg, params[f"seg{si}"], h,
                          positions=positions,
                          seg_cache=cache[f"seg{si}"] if cache else None,
-                         impl=impl, paged_tables=paged_tables)
+                         impl=impl, paged_tables=paged_tables,
+                         state_sink=state_sink)
 
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]

@@ -1,7 +1,8 @@
 """Serving telemetry: the part of ``repro.runtime.telemetry.ServeTelemetry``
 that the continuous-batching engine records each step (slot occupancy,
-block-pool pressure, residency, emitted tokens, step time), plus the split
-of each step's host-clock time into its prefill and decode parts.
+block-pool pressure, residency overall and by cache group, emitted
+tokens, step time), plus the split of each step's host-clock time into
+its prefill and decode parts.
 
 The engine reads a token back to the host at the end of every prefill and
 every decode step, which waits for the device, so these host-clock times
@@ -29,6 +30,8 @@ class ServeStep:
     new_tokens: int = 0          # decode tokens emitted
     resident_bytes: int = 0
     capacity_bytes: int = 0
+    # residency by cache group: {"global": bytes, "recurrent": bytes}
+    resident_by_group: dict = field(default_factory=dict)
     prefill_seconds: float = 0.0
     decode_seconds: float = 0.0
 
@@ -48,6 +51,7 @@ class ServeTelemetry:
         self._peak_pressure = 0.0
         self._max_concurrency = 0
         self._peak_resident_bytes = 0
+        self._peak_group_bytes: dict = {}
         self._prefills = 0
         self._prefill_seconds = 0.0
         self._decode_steps = 0
@@ -57,6 +61,7 @@ class ServeTelemetry:
                     n_slots: int, blocks_in_use: int, n_blocks: int,
                     prefills: int = 0, new_tokens: int = 0,
                     resident_bytes: int = 0, capacity_bytes: int = 0,
+                    resident_by_group: dict = None,
                     prefill_seconds: float = 0.0,
                     decode_seconds: float = 0.0) -> None:
         self.steps.append(ServeStep(
@@ -64,6 +69,7 @@ class ServeTelemetry:
             n_slots=n_slots, blocks_in_use=blocks_in_use, n_blocks=n_blocks,
             prefills=prefills, new_tokens=new_tokens,
             resident_bytes=resident_bytes, capacity_bytes=capacity_bytes,
+            resident_by_group=dict(resident_by_group or {}),
             prefill_seconds=prefill_seconds, decode_seconds=decode_seconds))
         self._total_tokens += new_tokens + prefills
         self._busy_seconds += seconds
@@ -73,6 +79,9 @@ class ServeTelemetry:
         self._max_concurrency = max(self._max_concurrency, len(active_slots))
         self._peak_resident_bytes = max(self._peak_resident_bytes,
                                         resident_bytes)
+        for group, nbytes in (resident_by_group or {}).items():
+            self._peak_group_bytes[group] = max(
+                self._peak_group_bytes.get(group, 0), nbytes)
         self._prefills += prefills
         self._prefill_seconds += prefill_seconds
         if active_slots:
@@ -89,7 +98,8 @@ class ServeTelemetry:
         return statistics.mean(vals) if vals else 0.0
 
     def cache_pressure(self) -> float:
-        """Mean fraction of cache blocks allocated over the recent window."""
+        """Mean fraction of cache blocks allocated over the recent window
+        (0 when no step had a block pool, as for a pure-recurrent model)."""
         vals = [s.blocks_in_use / s.n_blocks for s in self._recent()
                 if s.n_blocks]
         return statistics.mean(vals) if vals else 0.0
@@ -99,6 +109,12 @@ class ServeTelemetry:
 
     def peak_resident_bytes(self) -> int:
         return self._peak_resident_bytes
+
+    def peak_resident_bytes_by_group(self) -> dict:
+        """Peak residency per cache group ({"global"/"recurrent"} ->
+        bytes); the recurrent entry is bounded by n_slots state slots
+        whatever the generated length."""
+        return dict(self._peak_group_bytes)
 
     def max_concurrency(self) -> int:
         return self._max_concurrency

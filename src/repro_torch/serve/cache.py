@@ -1,12 +1,16 @@
 """Block (paged) KV cache of the continuous-batching engine: the host-side
 ``BlockAllocator`` and the physical ``PagedKVStore``.
 
-The port's copy of the global-attention part of ``repro.serve.cache``.
-Cache memory is divided into blocks of ``block_size`` tokens; each
-admitted request owns a per-slot block table that grows one block at a
-time as it decodes, and every block returns to the free list when the
-request finishes.  Admission reserves a request's worst case
-(``prompt + max_new`` tokens), so decode can never run out of blocks.
+The port's copy of the global-attention and recurrent-state parts of
+``repro.serve.cache``.  Cache memory is divided into blocks of
+``block_size`` tokens; each admitted request owns a per-slot block table
+that grows one block at a time as it decodes, and every block returns to
+the free list when the request finishes.  Admission reserves a request's
+worst case (``prompt + max_new`` tokens), so decode can never run out of
+blocks.  A model with recurrent (SSD) layers also holds one state slot per
+live request (its lane's O(1) state slabs), accounted apart from the
+blocks; a model with no attention layer holds no blocks at all
+(``CacheLayout``).
 
 Failures are typed as in the reference: ``CacheExhausted`` (a
 ``MemoryError``) is expected backpressure, ``AllocatorInvariantError`` (an
@@ -57,6 +61,20 @@ class CacheConfig:
     def null_block(self) -> int:
         """Physical id of the scratch page (one past the allocatable pool)."""
         return self.n_blocks
+
+
+@dataclass(frozen=True)
+class CacheLayout:
+    """Which cache groups a model's layers need, in allocator terms: the
+    reference's ``CacheLayout`` less the groups the port does not serve
+    yet.  Built by the engine from ``models.lm.serve_groups`` and installed
+    with ``BlockAllocator.set_layout``; the default is the global-only
+    regime.  ``state_slots``/``state_bytes_per_slot`` describe the
+    recurrent lanes (0 slots = no recurrent group)."""
+
+    has_global: bool = True
+    state_slots: int = 0
+    state_bytes_per_slot: int = 0
 
 
 class PagedKVStore:
@@ -126,7 +144,9 @@ class PagedKVStore:
 
 
 class BlockAllocator:
-    """Free-list block allocator with one growing block table per slot.
+    """Free-list block allocator with one growing block table per slot,
+    and a state slot per live request when the layout has a recurrent
+    group.
 
     Admissions may carry a worst-case reservation (``reserve_tokens``):
     the reserved but not yet claimed blocks of every live slot are
@@ -145,8 +165,16 @@ class BlockAllocator:
         self._tokens: dict[int, int] = {}          # slot -> resident tokens
         self._reserve: dict[int, int] = {}         # slot -> reserved blocks
         self.stores: list[PagedKVStore] = []
+        self.layout = CacheLayout()
+        self._state_slots: set[int] = set()
         if store is not None:
             self.attach_store(store)
+
+    def set_layout(self, layout: CacheLayout) -> None:
+        """Install the engine's cache-group layout (before any admission)."""
+        if self.tables or self._state_slots:
+            raise ValueError("cannot change layout with live allocations")
+        self.layout = layout
 
     # -- queries ----------------------------------------------------------------
     @property
@@ -164,7 +192,10 @@ class BlockAllocator:
     def blocks_needed(self, n_tokens: int,
                       reserve_tokens: Optional[int] = None) -> int:
         """Admission price: blocks for ``n_tokens``, or for the worst case
-        ``reserve_tokens`` when that is larger."""
+        ``reserve_tokens`` when that is larger (none without a global
+        group)."""
+        if not self.layout.has_global:
+            return 0
         return self.config.blocks_for(max(n_tokens, reserve_tokens or 0))
 
     def outstanding_blocks(self) -> int:
@@ -178,8 +209,14 @@ class BlockAllocator:
 
     def can_allocate(self, n_tokens: int,
                      reserve_tokens: Optional[int] = None) -> bool:
+        if self.layout.state_slots and \
+                len(self._state_slots) >= self.layout.state_slots:
+            return False
         return self.blocks_needed(n_tokens, reserve_tokens) \
             <= self.n_available()
+
+    def state_slots_in_use(self) -> int:
+        return len(self._state_slots)
 
     # -- lifecycle ---------------------------------------------------------------
     def _claim(self, n: int, what: str) -> list[int]:
@@ -192,8 +229,9 @@ class BlockAllocator:
                  reserve_tokens: Optional[int] = None) -> list[int]:
         """Claim blocks for a request admitted into ``slot`` holding
         ``n_tokens`` (prompt + first generated token); with
-        ``reserve_tokens`` also reserve blocks for its worst case.
-        Returns the slot's block ids."""
+        ``reserve_tokens`` also reserve blocks for its worst case; with a
+        recurrent group also take the slot's state slot.  Returns the
+        slot's block ids (none without a global group)."""
         if slot in self.tables:
             raise AllocatorInvariantError(
                 f"slot {slot} already has an allocation")
@@ -202,11 +240,14 @@ class BlockAllocator:
                 f"need {self.blocks_needed(n_tokens, reserve_tokens)} blocks "
                 f"for {n_tokens} tokens, {self.n_available()} available "
                 f"({self.n_free} free, {self.outstanding_blocks()} reserved)")
-        table = self._claim(self.config.blocks_for(n_tokens), f"slot {slot}")
+        need = self.blocks_needed(n_tokens)
+        table = self._claim(need, f"slot {slot}")
         self.tables[slot] = table
         self._tokens[slot] = n_tokens
-        if reserve_tokens is not None:
+        if reserve_tokens is not None and self.layout.has_global:
             self._reserve[slot] = self.config.blocks_for(reserve_tokens)
+        if self.layout.state_slots:
+            self._state_slots.add(slot)
         return list(table)
 
     def extend(self, slot: int, n_tokens_total: int) -> list[int]:
@@ -220,7 +261,7 @@ class BlockAllocator:
             raise AllocatorInvariantError(
                 f"slot {slot}: cannot shrink {self._tokens[slot]} -> "
                 f"{n_tokens_total}")
-        need = self.config.blocks_for(n_tokens_total) - len(self.tables[slot])
+        need = self.blocks_needed(n_tokens_total) - len(self.tables[slot])
         if need > 0:
             own = max(0, self._reserve.get(slot, 0) - len(self.tables[slot]))
             extra = max(0, need - own)
@@ -235,13 +276,15 @@ class BlockAllocator:
 
     def free_slot(self, slot: int) -> int:
         """Return every block of ``slot`` to the free list (in table order,
-        so the next claims reuse them first); returns how many."""
+        so the next claims reuse them first) and release its state slot;
+        returns how many blocks."""
         if slot not in self.tables:
             raise AllocatorInvariantError(f"slot {slot} has no allocation")
         blocks = self.tables.pop(slot)
         self._tokens.pop(slot)
         self._reserve.pop(slot, None)
         self._free.extend(reversed(blocks))
+        self._state_slots.discard(slot)
         return len(blocks)
 
     def padded_table(self, slot: int, width: int) -> list[int]:
@@ -256,7 +299,8 @@ class BlockAllocator:
     # -- invariants --------------------------------------------------------------
     def check(self) -> None:
         """Every block is free or in exactly one table, each table covers
-        exactly its slot's tokens, and reservations fit the free pool."""
+        exactly its slot's tokens, reservations fit the free pool, and with
+        a recurrent group every live slot holds exactly one state slot."""
         owned = [b for t in self.tables.values() for b in t]
         everything = self._free + owned
         if len(set(everything)) != len(everything):
@@ -266,7 +310,7 @@ class BlockAllocator:
                 f"{self.config.n_blocks - len(everything)} blocks "
                 "unaccounted for")
         for slot, table in self.tables.items():
-            if len(table) != self.config.blocks_for(self._tokens[slot]):
+            if len(table) != self.blocks_needed(self._tokens[slot]):
                 raise AllocatorInvariantError(
                     f"slot {slot}: {len(table)} blocks for "
                     f"{self._tokens[slot]} tokens")
@@ -276,6 +320,19 @@ class BlockAllocator:
             raise AllocatorInvariantError(
                 f"reservations outstanding ({self.outstanding_blocks()}) "
                 f"exceed free blocks ({self.n_free})")
+        if self._state_slots - set(self.tables):
+            raise AllocatorInvariantError(
+                "state slots held by no live slot: "
+                f"{sorted(self._state_slots - set(self.tables))}")
+        if self.layout.state_slots and \
+                self._state_slots != set(self.tables):
+            raise AllocatorInvariantError(
+                "live slots without a state slot: "
+                f"{sorted(set(self.tables) - self._state_slots)}")
+        if len(self._state_slots) > self.layout.state_slots:
+            raise AllocatorInvariantError(
+                f"{len(self._state_slots)} state slots in use, layout has "
+                f"{self.layout.state_slots}")
 
     # -- physical store ----------------------------------------------------------
     def attach_store(self, store: PagedKVStore) -> None:
@@ -284,8 +341,25 @@ class BlockAllocator:
         self.stores.append(store)
 
     def resident_bytes(self) -> int:
-        """Device bytes pinned by allocated blocks across the stores."""
-        return self.n_in_use * sum(s.block_bytes for s in self.stores)
+        """Device bytes pinned by allocated blocks across the stores and by
+        live state slots."""
+        return sum(self.resident_bytes_by_group().values())
+
+    def resident_bytes_by_group(self) -> dict[str, int]:
+        """Residency split by cache group: ``"global"`` is blocks in use
+        times the stores' bytes per block, ``"recurrent"`` state slots in
+        use times the layout's bytes per slot."""
+        out: dict[str, int] = {}
+        block_bytes = sum(s.block_bytes for s in self.stores)
+        if block_bytes:
+            out["global"] = self.n_in_use * block_bytes
+        if self.layout.state_slots:
+            out["recurrent"] = len(self._state_slots) * \
+                self.layout.state_bytes_per_slot
+        return out
 
     def capacity_bytes(self) -> int:
-        return self.config.n_blocks * sum(s.block_bytes for s in self.stores)
+        total = self.config.n_blocks * sum(s.block_bytes
+                                           for s in self.stores)
+        return total + self.layout.state_slots * \
+            self.layout.state_bytes_per_slot

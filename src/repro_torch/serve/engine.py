@@ -5,13 +5,15 @@ A port of the ``paged=True``, whole-prompt-prefill, greedy subset of
 ``repro.serve.engine``.  ``ContinuousEngine`` admits queued requests into
 free decode lanes mid-stream (``SlotScheduler`` + ``BlockAllocator``),
 prefills each prompt whole into a dense single-request cache, scatters
-that cache into the shared page pools (``lm.insert_paged_prompt``), and
-then decodes all lanes in one batched step that writes each lane's row
-through its block table and attends with the paged kernel.  Each lane
+that cache into the shared page pools and, for recurrent (SSD) layers,
+into the lane's state slabs (``lm.insert_paged_prompt``), and then decodes
+all lanes in one batched step that writes each lane's row through its
+block table and attends with the paged kernel, and advances the state
+slabs of the active lanes only (``lm.freeze_state_lanes``).  Each lane
 computes exactly the B=1 decode path, so its tokens match
 ``Engine.generate`` on that request alone: the gathered paged view has
-exactly ``kv_len`` rows (``kv_len % block_size == 0`` is enforced) and
-masked rows add exact zeros.
+exactly ``kv_len`` rows (``kv_len % block_size == 0`` is enforced when the
+model has attention layers) and masked rows add exact zeros.
 
 ``impl="kernel"`` (default) launches the hand-written Hopper kernels on
 CUDA tensors (their plain versions on CPU tensors); ``impl="plain"`` is
@@ -31,7 +33,8 @@ from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.telemetry import ServeTelemetry
 
-from .cache import BlockAllocator, CacheConfig, CacheExhausted, PagedKVStore
+from .cache import (BlockAllocator, CacheConfig, CacheExhausted, CacheLayout,
+                    PagedKVStore)
 from .scheduler import ActiveSlot, Request, SlotScheduler
 
 
@@ -59,15 +62,23 @@ def make_serve_step(cfg: ModelConfig, impl: str = "kernel"):
 
 
 def make_paged_decode_step(cfg: ModelConfig, impl: str = "kernel"):
-    """decode(params, caches, toks [B], pos [B], tables {"global": [B, W]})
-    -> (next_toks [B], caches).  One batched step over every lane; each
-    lane writes its row through its table (inactive lanes hold null rows,
-    so their writes land in the scratch page)."""
-    def decode_step(params, caches, toks, pos, tables):
+    """decode(params, caches, toks [B], pos [B], tables {"global": [B, W]}
+    (empty without attention layers), active [B] bool) -> (next_toks [B],
+    caches).  One batched step over every lane; each lane writes its row
+    through its table (inactive lanes hold null rows, so their writes land
+    in the scratch page), and ``active`` confines the recurrent state
+    update to the lanes actually decoding: every recurrent layer's new
+    state goes through ``lm.freeze_state_lanes`` as soon as it is computed.
+    The step waits on nothing from the device."""
+    def decode_step(params, caches, toks, pos, tables, active):
+        def freeze(key, new):
+            lm.freeze_state_lanes(cfg, caches, {key: new}, active)
+
         logits, caches = lm.forward(cfg, params, toks[:, None],
                                     positions=pos, cache=caches,
                                     mode="decode", impl=impl,
-                                    paged_tables=tables["global"])
+                                    paged_tables=tables.get("global"),
+                                    state_sink=freeze)
         return _greedy(logits, cfg), caches
     return decode_step
 
@@ -119,9 +130,10 @@ class ContinuousEngine:
 
     Requests are ``submit()``-ed with an arrival step, then ``run()``
     drives the loop: admit arrived requests into free slots (worst-case
-    block reservation), prefill each whole and insert it into the page
-    pools, run one batched decode step over all lanes, retire finished
-    slots and reclaim their blocks.  Only ``paged=True`` is ported;
+    block reservation, and a state slot for a recurrent model), prefill
+    each whole and insert it into the page pools and state slabs, run one
+    batched decode step over all lanes, retire finished slots and reclaim
+    their blocks and state slots.  Only ``paged=True`` is ported;
     bucketed or chunked prefill, the prefix cache, speculation, sampling
     and dense lanes raise ``NotImplementedError``.
     """
@@ -152,14 +164,20 @@ class ContinuousEngine:
             raise NotImplementedError(
                 "dense lanes are not ported yet; pass paged=True")
         _check_servable(self.cfg)
+        groups = lm.serve_groups(self.cfg)
+        self._has_global = bool(groups["paged"])
+        self._has_state = bool(groups["recurrent"])
         if self.kv_len <= 0:
             raise ValueError("kv_len must be positive")
-        if self.kv_len % self.block_size:
+        if self._has_global and self.kv_len % self.block_size:
             raise ValueError(
                 f"paged mode needs kv_len ({self.kv_len}) divisible by "
                 f"block_size ({self.block_size}) so the gathered KV view "
                 "matches the dense oracle's shape (token identity)")
-        self._max_blocks = self.kv_len // self.block_size
+        # per-slot block budget: a global table grows to the full context;
+        # recurrent layers hold state slots, no blocks
+        self._max_blocks = (self.kv_len // self.block_size
+                            if self._has_global else 0)
         cache_cfg = CacheConfig(block_size=self.block_size,
                                 n_blocks=self.n_slots * self._max_blocks)
         self.allocator = BlockAllocator(cache_cfg)
@@ -170,16 +188,26 @@ class ContinuousEngine:
         self._prefill = make_prefill_step(self.cfg, self.impl)
         self._decode_p = make_paged_decode_step(self.cfg, self.impl)
         self._caches = lm.init_paged_caches(
-            self.cfg, cache_cfg.n_blocks + 1, self.block_size, self.dtype,
-            self.device)
+            self.cfg, self.n_slots, cache_cfg.n_blocks + 1, self.block_size,
+            self.dtype, self.device)
         for _, keys, leaf in lm.paged_cache_leaves(self.cfg, self._caches):
             self.allocator.attach_store(PagedKVStore.from_pools(
                 cache_cfg, leaf[keys[0]], leaf[keys[1]]))
+        self.allocator.set_layout(CacheLayout(
+            has_global=self._has_global,
+            state_slots=self.n_slots if self._has_state else 0,
+            state_bytes_per_slot=lm.state_bytes_per_slot(self.cfg,
+                                                         self._caches)))
         self._null_row = torch.full((self._max_blocks,),
                                     cache_cfg.null_block, dtype=torch.int32,
                                     device=self.device)
         # one published [n_slots, W] table per block group
-        self._tables = {"global": self._null_row.repeat(self.n_slots, 1)}
+        self._tables = ({"global": self._null_row.repeat(self.n_slots, 1)}
+                        if self._has_global else {})
+        # lanes holding a decoding request, kept on the device so the
+        # decode step never reads it back
+        self._active = torch.zeros(self.n_slots, dtype=torch.bool,
+                                   device=self.device)
         self._toks = torch.zeros(self.n_slots, dtype=torch.int32,
                                  device=self.device)
         self._pos = torch.zeros(self.n_slots, dtype=torch.int32,
@@ -225,29 +253,38 @@ class ContinuousEngine:
         slot = act.slot
         prompt = torch.tensor(act.request.prompt, dtype=torch.int32,
                               device=self.device)
-        row = self._refresh_row(slot)
+        rows = ({"global": self._refresh_row(slot)} if self._has_global
+                else {})
         tok, cache = self._full_prefill(prompt)
-        lm.insert_paged_prompt(self.cfg, self._caches, cache,
-                               {"global": row}, block_size=self.block_size,
+        # whole-prompt admission overwrites the lane's state slabs, so a
+        # reused lane needs no reset
+        lm.insert_paged_prompt(self.cfg, self._caches, cache, rows, slot,
+                               block_size=self.block_size,
                                null_block=self.allocator.config.null_block)
         start_pos = act.request.prompt_len
         self._toks[slot] = tok[0]
         self._pos[slot] = start_pos
-        self._tables["global"][slot] = row
+        for group, row in rows.items():
+            self._tables[group][slot] = row
+        self._active[slot] = True
         self._host_pos[slot] = start_pos
         act.first_token_step = self._now
         act.tokens.append(int(tok[0]))
 
     def _finish(self, slot: int) -> list:
-        """Retire ``slot``: reclaim its blocks and unmap its table row."""
+        """Retire ``slot``: reclaim its blocks and state slot, unmap its
+        table row and freeze its state slabs."""
         act = self.scheduler.finish(slot)
-        self._tables["global"][slot] = self._null_row
+        for table in self._tables.values():
+            table[slot] = self._null_row
+        self._active[slot] = False
         self._host_pos.pop(slot, None)
         return act.tokens
 
     def _grow_tables(self, decoding: list) -> None:
         """Claim the block backing each lane's next write before the
-        decode step runs (the write needs a physical destination)."""
+        decode step runs (the write needs a physical destination; a
+        model without attention layers never claims one)."""
         for slot in decoding:
             if self.allocator.extend(slot, self._host_pos[slot] + 1):
                 self._tables["global"][slot] = self._refresh_row(slot)
@@ -297,7 +334,7 @@ class ContinuousEngine:
             self._grow_tables(decoding)
             toks, self._caches = self._decode_p(
                 self.params, self._caches, self._toks, self._pos,
-                self._tables)
+                self._tables, self._active)
             self._toks = toks
             self._pos = self._pos + 1
             toks_host = toks.tolist()          # one device->host transfer
@@ -326,6 +363,7 @@ class ContinuousEngine:
             n_blocks=self.allocator.n_blocks, prefills=prefills,
             new_tokens=new_tokens,
             resident_bytes=self.allocator.resident_bytes(),
+            resident_by_group=self.allocator.resident_bytes_by_group(),
             capacity_bytes=self.allocator.capacity_bytes(),
             prefill_seconds=prefill_seconds,
             decode_seconds=decode_seconds)

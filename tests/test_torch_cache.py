@@ -1,8 +1,11 @@
 """The port's copied allocator, store, scheduler and telemetry against the
 reference's: randomized churn with ``check()`` after every operation,
 identical block ids to ``repro.serve.cache.BlockAllocator`` for the same
-operations, typed failures, the torch ``PagedKVStore``, and FCFS
-admission with worst-case reservations."""
+operations (global-only, global with state slots, and state slots alone),
+typed failures, state-slot accounting (admission gated by free slots,
+release on finish, ``check()`` catching a leaked slot, recurrent
+residency), the torch ``PagedKVStore``, and FCFS admission with
+worst-case reservations."""
 
 import numpy as np
 import pytest
@@ -11,7 +14,7 @@ import torch
 from repro.serve import cache as jcache
 from repro.serve import scheduler as jsched
 from repro_torch.serve.cache import (AllocatorInvariantError, BlockAllocator,
-                                     CacheConfig, CacheExhausted,
+                                     CacheConfig, CacheExhausted, CacheLayout,
                                      PagedKVStore)
 from repro_torch.serve import scheduler as psched
 from repro_torch.serve.scheduler import Request, SlotScheduler
@@ -20,13 +23,23 @@ from repro_torch.runtime.telemetry import ServeTelemetry
 torch.set_num_threads(2)
 
 
+LAYOUTS = {"global": {},
+           "global+state": {"state_slots": 4, "state_bytes_per_slot": 96},
+           "state": {"has_global": False, "state_slots": 4,
+                     "state_bytes_per_slot": 96}}
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_allocator_churn_matches_reference(seed):
+def test_allocator_churn_matches_reference(seed, layout):
     rng = np.random.default_rng(seed)
-    cfg = CacheConfig(block_size=4, n_blocks=24)
+    n_blocks = 0 if layout == "state" else 24
+    cfg = CacheConfig(block_size=4, n_blocks=n_blocks)
     port = BlockAllocator(cfg)
     ref = jcache.BlockAllocator(jcache.CacheConfig(block_size=4,
-                                                   n_blocks=24))
+                                                   n_blocks=n_blocks))
+    port.set_layout(CacheLayout(**LAYOUTS[layout]))
+    ref.set_layout(jcache.CacheLayout(**LAYOUTS[layout]))
     live: dict[int, list] = {}                  # slot -> [tokens, reserve]
     for _ in range(300):
         op = rng.integers(3)
@@ -52,12 +65,16 @@ def test_allocator_churn_matches_reference(seed):
         ref.check()
         assert port.tables == ref.tables
         assert port.n_available() == ref.n_available()
+        assert port.state_slots_in_use() == ref.state_slots_in_use()
+        assert port.resident_bytes_by_group().get("recurrent") == \
+            ref.resident_bytes_by_group().get("recurrent")
         for s in live:
             assert port.padded_table(s, 8) == ref.padded_table(s, 8)
     for s in list(live):
         port.free_slot(s)
     port.check()
     assert port.n_free == cfg.n_blocks
+    assert port.state_slots_in_use() == 0
 
 
 def test_allocator_typed_failures():
@@ -78,6 +95,47 @@ def test_allocator_typed_failures():
     alloc.free_slot(0)
     with pytest.raises(AllocatorInvariantError):
         alloc.free_slot(0)                           # double free
+    alloc.check()
+
+
+def test_state_slots_gate_admission_and_are_released():
+    alloc = BlockAllocator(CacheConfig(block_size=4, n_blocks=0))
+    alloc.set_layout(CacheLayout(has_global=False, state_slots=2,
+                                 state_bytes_per_slot=1000))
+    assert alloc.blocks_needed(100, reserve_tokens=500) == 0
+    assert alloc.allocate(0, 9, reserve_tokens=40) == []
+    assert alloc.allocate(1, 3) == []
+    assert not alloc.can_allocate(1)                 # both slots taken
+    with pytest.raises(CacheExhausted):
+        alloc.allocate(2, 1)
+    assert alloc.extend(0, 30) == []                 # state lanes never grow
+    assert alloc.resident_bytes_by_group() == {"recurrent": 2000}
+    assert alloc.resident_bytes() == 2000
+    assert alloc.capacity_bytes() == 2000
+    alloc.free_slot(1)
+    assert alloc.state_slots_in_use() == 1 and alloc.can_allocate(1)
+    assert alloc.resident_bytes_by_group() == {"recurrent": 1000}
+    with pytest.raises(ValueError, match="layout"):
+        alloc.set_layout(CacheLayout())              # live allocations
+    alloc.check()
+    alloc.free_slot(0)
+    alloc.check()
+    assert alloc.state_slots_in_use() == 0 and alloc.resident_bytes() == 0
+
+
+def test_check_catches_leaked_and_missing_state_slots():
+    alloc = BlockAllocator(CacheConfig(block_size=4, n_blocks=8))
+    alloc.set_layout(CacheLayout(state_slots=3, state_bytes_per_slot=8))
+    alloc.allocate(0, 5)
+    alloc.check()
+    alloc._state_slots.add(2)                        # held by no request
+    with pytest.raises(AllocatorInvariantError, match="state slots"):
+        alloc.check()
+    alloc._state_slots.discard(2)
+    alloc._state_slots.discard(0)                    # live slot without one
+    with pytest.raises(AllocatorInvariantError, match="state slot"):
+        alloc.check()
+    alloc._state_slots.add(0)
     alloc.check()
 
 
@@ -151,3 +209,11 @@ def test_telemetry_aggregates():
     assert tel.max_concurrency() == 2
     assert tel.occupancy() == pytest.approx(0.25)
     assert tel.peak_resident_bytes() == 100
+    tel.record_step(2, 0.1, (0,), 4, 0, 0, new_tokens=1,
+                    resident_by_group={"recurrent": 64})
+    tel.record_step(3, 0.1, (0, 1), 4, 0, 0, new_tokens=2,
+                    resident_by_group={"recurrent": 128})
+    tel.record_step(4, 0.1, (1,), 4, 0, 0, new_tokens=1,
+                    resident_by_group={"recurrent": 64})
+    assert tel.peak_resident_bytes_by_group() == {"recurrent": 128}
+    assert tel.steps[-1].resident_by_group == {"recurrent": 64}

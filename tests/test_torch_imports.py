@@ -43,9 +43,15 @@ def test_import_check_catches_offenders(tmp_path):
 
 
 def test_kernel_wrappers_have_no_fallback_around_the_launch():
-    ops_files = sorted((ROOT / "src" / "repro_torch" / "kernels")
-                       .rglob("ops.py"))
-    assert len(ops_files) == 2
+    """Every kernel the build compiles has an ``ops.py`` beside its source,
+    and none wraps code in ``try``."""
+    from repro_torch.kernels import _build
+    kernels_dir = ROOT / "src" / "repro_torch" / "kernels"
+    ops_files = sorted(kernels_dir.rglob("ops.py"))
+    assert ops_files == sorted(src.parent / "ops.py"
+                               for src in _build.SOURCES.values())
+    assert set(_build.SOURCES) >= {"paged_attention", "flash_attention",
+                                   "ssd_scan"}
     for path in ops_files:
         tree = ast.parse(path.read_text())
         tries = [n for n in ast.walk(tree) if isinstance(n, ast.Try)]

@@ -1,13 +1,15 @@
 """The port's model and engines against the JAX package, end to end, on the
-CPU at the reduced TinyLlama size in f32.
+CPU at the reduced TinyLlama and mamba2-370m sizes in f32.
 
 Same weights (``repro.models.lm.init_params`` output carried across by
 ``repro_torch.convert``) and the same prompts through both packages:
 ``lm.forward`` logits within 1e-4 in prefill and decode; greedy tokens
 identical to the JAX ``Engine`` and ``ContinuousEngine(paged=True)``; the
 port's ``ContinuousEngine(paged=True)`` token-identical to its own
-``Engine`` per request.  Also the port's config copy, parameter init and
-conversion, its refusals, and its device rule.
+``Engine`` per request (for mamba2 with more requests than lanes, so
+lanes and their state slabs are reused, and with retired lanes whose slabs
+the batched step must leave alone).  Also the port's config copy,
+parameter init and conversion, its refusals, and its device rule.
 """
 
 import dataclasses
@@ -26,17 +28,18 @@ from repro_torch import configs
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import lm
-from repro_torch.serve import ContinuousEngine, Engine
+from repro_torch.serve import ContinuousEngine, Engine, make_paged_decode_step
 
 torch.set_num_threads(2)
 ARCH = "tinyllama-1.1b"
+SSM_ARCH = "mamba2-370m"
 KV_LEN = 48
 
 
-def _pair(**changes):
+def _pair(arch=ARCH, **changes):
     """(jax cfg, port cfg, jax params, port params) on the same weights."""
-    jcfg = jconfigs.get(ARCH).reduced().replace(**changes)
-    cfg = configs.get(ARCH).reduced().replace(**changes)
+    jcfg = jconfigs.get(arch).reduced().replace(**changes)
+    cfg = configs.get(arch).reduced().replace(**changes)
     jp = jlm.init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
     tp = params_from_numpy(cfg, jax.tree.map(np.asarray, jp), "cpu")
     return jcfg, cfg, jp, tp
@@ -45,6 +48,11 @@ def _pair(**changes):
 @pytest.fixture(scope="module")
 def models():
     return _pair()
+
+
+@pytest.fixture(scope="module")
+def ssm_models():
+    return _pair(SSM_ARCH)
 
 
 def _prompts(n, lens, vocab, seed=0):
@@ -82,7 +90,8 @@ def test_config_copy_matches_reference():
 def test_serve_groups_match_reference():
     """The per-layer cache-group report over every registry arch (ported
     configs built from the reference's fields), and the port's refusal of
-    every arch that is not all global attention with dense FFNs."""
+    every arch with a layer kind other than global attention with a dense
+    FFN or SSD with no FFN."""
     from repro.models.config import ModelConfig as JModelConfig
     from repro_torch.models.config import ModelConfig
     for name in jconfigs.available():
@@ -92,9 +101,11 @@ def test_serve_groups_match_reference():
         ref = jlm.serve_groups(jcfg)
         assert lm.serve_groups(cfg) == {k: ref[k] for k in
                                         ("paged", "window", "recurrent")}
-        plain = all(s.key == "global+dense" for s in cfg.layers()) and \
+        plain = {s.key for s in cfg.layers()} <= {"global+dense",
+                                                  "ssd+none"} and \
             not cfg.n_enc_layers and not cfg.frontend
         assert (lm.unsupported_reason(cfg) is None) == plain, name
+    assert lm.unsupported_reason(configs.get(SSM_ARCH)) is None
 
 
 def test_init_params_tree_matches_reference():
@@ -240,6 +251,100 @@ def test_launcher_serves_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "3 requests, 12 tokens" in out
     launch_serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "5", "--max-new",
+                       "3", "--kv-len", "16"])
+    assert "generated (2, 3)" in capsys.readouterr().out
+
+
+def test_ssm_engines_match_jax_engines(ssm_models):
+    """mamba2 through both packages: the port's Engine against the JAX
+    Engine, and staggered requests, more than lanes, through the port's
+    paged engine against the JAX paged engine and the port's B=1 Engine."""
+    jcfg, cfg, jp, tp = ssm_models
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (2, 9)).astype(np.int32)
+    exp = np.asarray(JEngine(jcfg, jp, kv_len=KV_LEN).generate(
+        jnp.asarray(toks), 7))
+    for impl in ("kernel", "plain"):
+        got = Engine(cfg, tp, kv_len=KV_LEN, impl=impl,
+                     device="cpu").generate(torch.from_numpy(toks), 7)
+        assert np.array_equal(got.numpy(), exp)
+
+    prompts = _prompts(6, [5, 17, 9, 30, 3, 12], cfg.vocab_size, seed=6)
+    max_new = [8, 12, 1, 10, 15, 6]
+    jeng = JContinuousEngine(jcfg, jp, kv_len=KV_LEN, n_slots=2, paged=True)
+    eng = ContinuousEngine(cfg, tp, kv_len=KV_LEN, n_slots=2, paged=True,
+                           device="cpu")
+    for e in (jeng, eng):
+        for i, (p, m) in enumerate(zip(prompts, max_new)):
+            e.submit(p, m, rid=i, arrival=2 * i)
+    exp, got = jeng.run(), eng.run()
+    oracle = Engine(cfg, tp, kv_len=KV_LEN, device="cpu")
+    for i, (p, m) in enumerate(zip(prompts, max_new)):
+        assert got[i] == exp[i]
+        assert got[i] == oracle.generate(torch.tensor([p]), m)[0].tolist()
+    assert eng.scheduler.max_slot_reuse() >= 3
+    eng.allocator.check()
+    assert eng.allocator.n_blocks == eng.allocator.n_in_use == 0
+    assert eng.allocator.state_slots_in_use() == 0
+    tel = eng.telemetry
+    assert tel.total_tokens() == sum(max_new)
+    per_slot = lm.state_bytes_per_slot(cfg, eng._caches)
+    assert tel.peak_resident_bytes_by_group() == {"recurrent": 2 * per_slot}
+    assert eng.allocator.capacity_bytes() == 2 * per_slot
+
+
+def _slab_copies(cfg, caches):
+    return [{k: t.clone() for k, t in leaf.items()}
+            for leaf in lm.state_cache_leaves(cfg, caches)]
+
+
+def test_freeze_state_lanes_keeps_retired_lanes(ssm_models):
+    """One batched paged decode step over two lanes, lane 1 retired: with
+    ``freeze_state_lanes`` (the engine's decode step) its slabs keep their
+    bytes and lane 0's advance; without it (the plain forward writing every
+    lane) lane 1's slabs would take its garbage token."""
+    _, cfg, _, tp = ssm_models
+    caches = lm.init_paged_caches(cfg, 2, 1, 16, torch.float32, "cpu")
+    gen = torch.Generator().manual_seed(3)
+    for leaf in lm.state_cache_leaves(cfg, caches):
+        for t in leaf.values():
+            t.copy_(torch.randn(t.shape, generator=gen))
+    before = _slab_copies(cfg, caches)
+    toks = torch.tensor([7, 11], dtype=torch.int32)
+    pos = torch.tensor([5, 9], dtype=torch.int32)
+    active = torch.tensor([True, False])
+    step = make_paged_decode_step(cfg)
+    _, caches = step(tp, caches, toks, pos, {}, active)
+    after = _slab_copies(cfg, caches)
+    for old, new in zip(before, after):
+        for k in old:
+            assert torch.equal(new[k][:, 1], old[k][:, 1])
+            assert not torch.equal(new[k][:, 0], old[k][:, 0])
+
+    # the same step without the freeze moves the retired lane's slabs
+    unfrozen = lm.init_paged_caches(cfg, 2, 1, 16, torch.float32, "cpu")
+    for leaf, snap in zip(lm.state_cache_leaves(cfg, unfrozen), before):
+        for k, t in leaf.items():
+            t.copy_(snap[k])
+    lm.forward(cfg, tp, toks[:, None], positions=pos, cache=unfrozen,
+               mode="decode")
+    moved = _slab_copies(cfg, unfrozen)
+    for old, new, frozen in zip(before, moved, after):
+        for k in old:
+            assert not torch.equal(new[k][:, 1], old[k][:, 1])
+            assert torch.equal(new[k][:, 0], frozen[k][:, 0])
+
+
+def test_ssm_launcher_serves_on_cpu(capsys):
+    launch_serve.main(["--arch", SSM_ARCH, "--reduced", "--continuous",
+                       "--paged", "--device", "cpu", "--requests", "3",
+                       "--prompt-len", "6", "--max-new", "4",
+                       "--kv-len", "32"])
+    out = capsys.readouterr().out
+    assert "3 requests, 12 tokens" in out
+    assert "0 layer pools" in out and "recurrent=" in out
+    launch_serve.main(["--arch", SSM_ARCH, "--reduced", "--device", "cpu",
                        "--batch", "2", "--prompt-len", "5", "--max-new",
                        "3", "--kv-len", "16"])
     assert "generated (2, 3)" in capsys.readouterr().out
