@@ -13,12 +13,16 @@ exit code:
    the main paths' full-width shapes and the JAX kernel tests' shapes, with
    those tests' bars.  Attention (H=32, KV=4, hd=64, block 16): ragged
    context lengths up to 1024, prompt lengths that are not multiples of 16
-   or 128, Sq=1, a window case and a softcap case; paged 1e-5 (f32), flash
-   2e-5 (f32), both 2e-2 (bf16).  SSD scan: the JAX test's four cases and
-   full-width mamba2-370m shapes (nh 32, hd 64, ns 128) at S = 17, 131,
-   200 and 512, each with and without an initial state, xs/B/C in f32 and
-   bf16; 1e-4 on y and on the final state.
-4. serve   — the two main paths, one after the other (each followed by
+   or 128, Sq=1, a window case and a softcap case; at recurrentgemma's
+   hd 256 (H=10, KV=1) with window 2048 and window 32; paged 1e-5 (f32),
+   flash 2e-5 (f32), both 2e-2 (bf16).  SSD scan: the JAX test's four
+   cases and full-width mamba2-370m shapes (nh 32, hd 64, ns 128) at S =
+   17, 131, 200 and 512, each with and without an initial state, xs/B/C in
+   f32 and bf16; 1e-4 on y and on the final state.  RG-LRU scan: the JAX
+   test's four cases at 1e-4, its near-one decay case at 1e-3 with finite
+   outputs, and full width (B 1, W 2560) at S = 17, 131 and 200, each with
+   and without a random initial state, 1e-4 on hs and h_final.
+4. serve   — the three main paths, one after the other (each followed by
    its timing, so that one path's weights never count in the other's
    peak memory), each with every launch counter zeroed
    just before it and read just after, every request checked against
@@ -27,9 +31,13 @@ exit code:
    first.  TinyLlama-1.1B (random f32 weights from a seeded generator)
    served by ``ContinuousEngine(paged=True, impl="kernel")`` for 8
    staggered requests: n_layers flash launches per prefill and paged
-   launches per decode step, no SSD launch.  Then mamba2-370m the same
+   launches per decode step, no scan launch.  Then mamba2-370m the same
    way: n_layers SSD-scan launches per prefill, no attention launch, and
-   no state slot left in use.
+   no state slot left in use.  Then recurrentgemma-2b: its reduced model's
+   window of 32 is shorter than the prompts, so window rings free blocks;
+   at full width 18 RG-LRU-scan and 8 flash launches per prefill, 8 paged
+   launches per decode step, no SSD launch, and no block, ring or state
+   slot left in use.
 5. timing  — each trace in bf16: tokens/s, mean decode step and prefill,
    peak memory, a repeat under ``torch.profiler`` (device time by kernel
    name, the device's busy share, and each port kernel's device time per
@@ -39,7 +47,8 @@ exit code:
    ``scaled_dot_product_attention`` call (a yardstick; the port never
    calls it).
 
-Then the ``{"kernels": [...]}`` summary line, the card's
+Then the ``{"kernels": [...]}`` summary line (paged and flash attention at
+TinyLlama's hd 64, with recurrentgemma's hd 256 beside them), the card's
 ``name, power.limit`` line, and last ``{"ok": true, "device": ...}``.
 Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of device memory,
 989 TFLOP/s of dense bf16 tensor-core math and 67 TFLOP/s of f32 math
@@ -62,6 +71,7 @@ BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12
 ARCH = "tinyllama-1.1b"
 SSM_ARCH = "mamba2-370m"
+RG_ARCH = "recurrentgemma-2b"
 PROMPT_LENS = (17, 200, 45, 131, 77, 163, 29, 111)
 MAX_NEW = 32
 KV_LEN = 512
@@ -71,7 +81,8 @@ STAGGER = 2
 MARGIN = 1e-3
 TOL = {("paged", "float32"): 1e-5, ("flash", "float32"): 2e-5,
        ("paged", "bfloat16"): 2e-2, ("flash", "bfloat16"): 2e-2,
-       ("ssd", "float32"): 1e-4, ("ssd", "bfloat16"): 1e-4}
+       ("ssd", "float32"): 1e-4, ("ssd", "bfloat16"): 1e-4,
+       ("rglru", "float32"): 1e-4, ("rglru", "near_one"): 1e-3}
 SSD_CHUNK = 32          # rows per chunk of the SSD-scan kernel
 
 
@@ -151,6 +162,22 @@ def ssd_inputs(gen, dev, dtype, B, S, nh, hd, ns):
     return xs.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype), D
 
 
+def rglru_inputs(gen, dev, B, S, W):
+    """The recipe of the JAX kernel test: a = sigmoid(N(0, 1)), bx ~
+    N(0, 1), float32."""
+    import torch
+    a = torch.sigmoid(torch.randn((B, S, W), generator=gen, device=dev))
+    bx = torch.randn((B, S, W), generator=gen, device=dev)
+    return a, bx
+
+
+def rglru_cost(B, S, W) -> tuple:
+    """(bytes, f32 flops) of one RG-LRU scan with an initial state: a and
+    bx read once, hs written once, h0 read and h_final written; one
+    multiply and one add per element."""
+    return 4 * (3 * B * S * W + 2 * B * W), 2 * B * S * W
+
+
 def ssd_cost(S, nh, hd, ns, x_bytes, seeded) -> tuple:
     """(bytes, f32 flops) the SSD scan needs for one sequence: every input
     read once (h0 when given), y and the state written once; the products
@@ -174,6 +201,8 @@ def phase_kernels(dev) -> dict:
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention import ref as pa_ref
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.kernels.rglru_scan import ref as rglru_ref
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
@@ -189,6 +218,10 @@ def phase_kernels(dev) -> dict:
         ("softcap", 4, 32, 4, 64, 16, 64, [9, 260, 511, 1000], 0, 30.0),
         ("hd16", 3, 4, 2, 16, 16, 8, [1, 50, 128], 0, 0.0),
         ("hd128", 2, 8, 1, 128, 16, 16, [33, 256], 0, 0.0),
+        # recurrentgemma-2b: MQA, hd 256, its window and a short one
+        ("rg_main_trace", 4, 10, 1, 256, 16, 32, [18, 201, 46, 132], 2048,
+         0.0),
+        ("rg_window32", 4, 10, 1, 256, 16, 32, [3, 77, 300, 512], 32, 0.0),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -206,7 +239,7 @@ def phase_kernels(dev) -> dict:
             rows.append({"kernel": "paged_attention", "case": name,
                          "dtype": dname, "max_abs_err": err, "tol": tol,
                          "ok": err < tol})
-            if dname == "float32" and name.startswith("main"):
+            if dname == "float32" and name.startswith(("main", "rg_")):
                 main_err["paged_attention"] = max(
                     main_err["paged_attention"], err)
     flash_cases = [
@@ -219,6 +252,10 @@ def phase_kernels(dev) -> dict:
         ("softcap", 1, 150, 150, 32, 4, 64, True, 0, 50.0, None),
         ("hd16", 2, 37, 37, 4, 2, 16, True, 0, 0.0, None),
         ("hd128_noncausal", 1, 70, 90, 8, 2, 128, False, 0, 0.0, None),
+        ("rg_prefill_131", 1, 131, 131, 10, 1, 256, True, 2048, 0.0, None),
+        ("rg_prefill_200_window32", 1, 200, 200, 10, 1, 256, True, 32, 0.0,
+         None),
+        ("rg_decode_sq1", 1, 1, 512, 10, 1, 256, True, 2048, 0.0, 300),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -245,7 +282,8 @@ def phase_kernels(dev) -> dict:
             rows.append({"kernel": "flash_attention", "case": name,
                          "dtype": dname, "max_abs_err": err, "tol": tol,
                          "ok": err < tol})
-            if dname == "float32" and name.startswith(("prefill", "decode")):
+            if dname == "float32" and name.startswith(("prefill", "decode",
+                                                       "rg_")):
                 main_err["flash_attention"] = max(
                     main_err["flash_attention"], err)
     ssd_cases = [
@@ -279,6 +317,42 @@ def phase_kernels(dev) -> dict:
                              "ok": err < tol})
                 if dname == "float32" and name.startswith("main"):
                     main_err["ssd_scan"] = max(main_err["ssd_scan"], err)
+    rglru_cases = [
+        # name, B, S, W (the JAX test's CASES first)
+        ("jax_case0", 2, 64, 128), ("jax_case1", 1, 128, 256),
+        ("jax_case2", 2, 96, 64), ("jax_case3", 1, 32, 512),
+        ("main_17", 1, 17, 2560), ("main_131", 1, 131, 2560),
+        ("main_200", 1, 200, 2560),
+    ]
+    main_err["rglru_scan"] = 0.0
+    for name, B, S, W in rglru_cases:
+        for seeded in (False, True):
+            a, bx = rglru_inputs(gen, dev, B, S, W)
+            h0 = (torch.randn((B, W), generator=gen, device=dev)
+                  if seeded else None)
+            hs, hf = rglru_ops.rglru_scan(a, bx, h0)
+            torch.cuda.synchronize()
+            he, hfe = rglru_ref.reference(a, bx, h0)
+            err = max((hs - he).abs().max().item(),
+                      (hf - hfe).abs().max().item())
+            tol = TOL[("rglru", "float32")]
+            rows.append({"kernel": "rglru_scan", "case": name,
+                         "dtype": "float32", "init_state": seeded,
+                         "max_abs_err": err, "tol": tol, "ok": err < tol})
+            if name.startswith("main"):
+                main_err["rglru_scan"] = max(main_err["rglru_scan"], err)
+    # the JAX test's near-one decay: long memory must stay finite
+    a = torch.full((1, 128, 64), 0.9999, device=dev)
+    bx = torch.full((1, 128, 64), 1e-3, device=dev)
+    hs, hf = rglru_ops.rglru_scan(a, bx)
+    torch.cuda.synchronize()
+    he, _ = rglru_ref.reference(a, bx)
+    err = (hs - he).abs().max().item()
+    tol = TOL[("rglru", "near_one")]
+    finite = bool(torch.isfinite(hs).all() and torch.isfinite(hf).all())
+    rows.append({"kernel": "rglru_scan", "case": "near_one_decay",
+                 "dtype": "float32", "init_state": False, "finite": finite,
+                 "max_abs_err": err, "tol": tol, "ok": finite and err < tol})
     emit("kernels", cases=rows)
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
@@ -295,13 +369,32 @@ def make_prompts(cfg, dev, seed: int) -> list:
 
 
 def serve_trace(cfg, params, prompts, dev, dtype, max_new=MAX_NEW):
+    """Serve ``prompts`` through the paged kernel engine.  Returns (engine,
+    results); ``engine.ring_blocks_freed`` counts the window-ring blocks
+    that fell behind the window during the run."""
     from repro_torch.serve import ContinuousEngine
     eng = ContinuousEngine(cfg, params, kv_len=KV_LEN, n_slots=N_SLOTS,
                            block_size=BLOCK, paged=True, impl="kernel",
                            dtype=dtype, device=dev)
+    eng.ring_blocks_freed = 0
+    slide = eng.allocator.extend_window
+
+    def counted_slide(slot, n_tokens_total):
+        fresh, freed = slide(slot, n_tokens_total)
+        eng.ring_blocks_freed += len(freed)
+        return fresh, freed
+
+    eng.allocator.extend_window = counted_slide
     for i, p in enumerate(prompts):
         eng.submit(p, max_new, rid=i, arrival=i * STAGGER)
-    return eng, eng.run()
+    try:
+        return eng, eng.run()
+    finally:
+        # the wrapper closes over the engine: drop it, so that no
+        # reference cycle keeps the engine's weights on the card until the
+        # garbage collector runs (they would count in the next path's peak
+        # memory)
+        del eng.allocator.extend_window
 
 
 def hold_against_plain(cfg, params, prompts, results, dev, dtype,
@@ -342,10 +435,12 @@ def launch_counters() -> dict:
     """The kernel wrappers, by kernel name; each counts its launches."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     return {"paged_attention": pa_ops.paged_attention,
             "flash_attention": fa_ops.flash_attention,
-            "ssd_scan": ssd_ops.ssd_scan}
+            "ssd_scan": ssd_ops.ssd_scan,
+            "rglru_scan": rglru_ops.rglru_scan}
 
 
 def phase_serve(dev, arch: str) -> dict:
@@ -360,11 +455,16 @@ def phase_serve(dev, arch: str) -> dict:
     sgen = torch.Generator(device=dev).manual_seed(7)
     sparams = lm.init_params(small, sgen, dev, torch.float32)
     sprompts = make_prompts(small, dev, seed=8)[:4]
-    _, sres = serve_trace(small, sparams, sprompts, dev, torch.float32, 12)
+    seng, sres = serve_trace(small, sparams, sprompts, dev, torch.float32,
+                             12)
     srows = hold_against_plain(small, sparams, sprompts, sres, dev,
                                torch.float32, 12)
-    emit("serve_reduced", arch=small.name, requests=srows)
+    emit("serve_reduced", arch=small.name, requests=srows,
+         window=small.window_size, ring_blocks_freed=seng.ring_blocks_freed)
     check(all(r["ok"] for r in srows), f"reduced model diverged: {srows}")
+    if small.window_size:
+        check(seng.ring_blocks_freed > 0, "no window ring freed a block")
+    check_clean(seng)
 
     cfg = configs.get(arch)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -384,11 +484,12 @@ def phase_serve(dev, arch: str) -> dict:
     tel = eng.telemetry
     decode_steps = sum(1 for s in tel.steps if s.active_slots)
     prefills = sum(s.prefills for s in tel.steps)
-    n_attn = sum(1 for s in cfg.layers() if s.mixer == "global")
-    n_ssd = sum(1 for s in cfg.layers() if s.mixer == "ssd")
+    mixers = [s.mixer for s in cfg.layers()]
+    n_attn = sum(1 for m in mixers if m in ("global", "local"))
     expect = {"paged_attention": n_attn * decode_steps,
               "flash_attention": n_attn * prefills,
-              "ssd_scan": n_ssd * prefills}
+              "ssd_scan": mixers.count("ssd") * prefills,
+              "rglru_scan": mixers.count("rglru") * prefills}
     rows = hold_against_plain(cfg, params, prompts, results, dev,
                               torch.float32)
     emit("serve", arch=cfg.name, dtype="float32", params=n_params,
@@ -396,16 +497,25 @@ def phase_serve(dev, arch: str) -> dict:
          decode_steps=decode_steps, launches=launches,
          expected_launches=expect,
          peak_resident_bytes_by_group=tel.peak_resident_bytes_by_group(),
+         ring_blocks_freed=eng.ring_blocks_freed,
          state_slots_in_use=eng.allocator.state_slots_in_use())
     check(prefills == len(prompts), f"{prefills} prefills")
     check(launches == expect, f"launches {launches} != expected {expect}")
     check(all(r["ok"] for r in rows), f"tokens diverged: {rows}")
-    eng.allocator.check()
-    check(eng.allocator.n_in_use == 0, "blocks leaked after the run")
-    check(eng.allocator.state_slots_in_use() == 0,
-          "state slots left in use after the run")
+    check_clean(eng)
     return {"params": params, "prompts": prompts, "launches": launches,
             "cfg": cfg}
+
+
+def check_clean(eng) -> None:
+    """After a run: the allocator's invariants hold and no block, window
+    ring or state slot is left in use."""
+    eng.allocator.check()
+    check(eng.allocator.n_in_use == 0, "blocks leaked after the run")
+    check(not eng.allocator.window_tables,
+          "window rings left after the run")
+    check(eng.allocator.state_slots_in_use() == 0,
+          "state slots left in use after the run")
 
 
 def _leaves(tree):
@@ -505,8 +615,13 @@ def set_bound(row: dict, flops_per_s: float) -> dict:
     return row
 
 
-def phase_timing(dev, served: dict) -> dict:
-    """TinyLlama's path: the bf16 trace and both attention kernels."""
+def attention_timing(dev, cfg, seed: int) -> dict:
+    """Both attention kernels at ``cfg``'s shapes in bf16, with its window
+    (0 for global attention): paged, one decode step of the trace's first
+    four lanes 16 tokens in; flash, the prefill of the trace's 131-row
+    prompt, beside one ``scaled_dot_product_attention`` call (GQA heads
+    expanded; causal, with the window as a mask where it cuts the
+    prompt)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -514,55 +629,73 @@ def phase_timing(dev, served: dict) -> dict:
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention import ref as pa_ref
 
-    cfg = served["cfg"]
-    serve, params = time_serve(dev, served)
-    del params
-    gen = torch.Generator(device=dev).manual_seed(99)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    win = cfg.window_size
     bf = torch.bfloat16
-    # paged: one decode step of the trace's first four lanes, 16 tokens in
     lens = [n + 16 for n in PROMPT_LENS[:N_SLOTS]]
     q, kp, vp, tbl, ln = paged_inputs(gen, dev, bf, N_SLOTS, H, KV, hd,
                                       BLOCK, KV_LEN // BLOCK, lens)
-    rows_used = sum(lens)
+    # the rows each lane attends: its last ``window`` ones with a window
+    used = [min(n, win) if win else n for n in lens]
+    rows_used = sum(used)
     p_bytes = (2 * rows_used * KV * hd * 2 + 2 * q.numel() * 2
-               + sum(-(-n // BLOCK) for n in lens) * 4 + N_SLOTS * 4)
+               + sum(-(-n // BLOCK) for n in used) * 4 + N_SLOTS * 4)
     p_flops = 4 * rows_used * H * hd
     paged = {
         "shape": {"B": N_SLOTS, "H": H, "KV": KV, "hd": hd, "bs": BLOCK,
                   "max_blocks": KV_LEN // BLOCK, "context_lens": lens,
-                  "dtype": "bfloat16"},
-        "ms": time_ms(lambda: pa_ops.paged_attention(q, kp, vp, tbl, ln)),
+                  "window": win, "dtype": "bfloat16"},
+        "ms": time_ms(lambda: pa_ops.paged_attention(q, kp, vp, tbl, ln,
+                                                     window=win)),
         "plain_ms": time_ms(lambda: pa_ref.reference(
-            q[:, None], kp, vp, tbl, ln, q_positions=(ln - 1)[:, None])),
+            q[:, None], kp, vp, tbl, ln, q_positions=(ln - 1)[:, None],
+            window=win)),
         "bytes": p_bytes, "flops": p_flops, "library_ms": None,
     }
-    # flash: one prefill of a trace prompt
     S = PROMPT_LENS[3]
     q, k, v = flash_inputs(gen, dev, bf, 1, S, S, H, KV, hd)
     pos = torch.arange(S, dtype=torch.int32, device=dev)
     f_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    f_flops = 4 * (S * (S + 1) // 2) * H * hd       # causal pairs only
+    # visible (query, key) pairs only: causal, inside the window
+    pairs = sum(min(i + 1, win) if win else i + 1 for i in range(S))
+    f_flops = 4 * pairs * H * hd
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     kt, vt = (x.repeat_interleave(H // KV, dim=1) for x in (kt, vt))
+    sdpa = {"is_causal": True}
+    if win and win < S:
+        dist = pos[:, None] - pos[None, :]
+        sdpa = {"attn_mask": (dist >= 0) & (dist < win)}
     flash = {
         "shape": {"B": 1, "Sq": S, "Skv": S, "H": H, "KV": KV, "hd": hd,
-                  "causal": True, "dtype": "bfloat16"},
+                  "causal": True, "window": win, "dtype": "bfloat16"},
         "ms": time_ms(lambda: fa_ops.flash_attention(
-            q, k, v, q_positions=pos, k_positions=pos)),
+            q, k, v, q_positions=pos, k_positions=pos, window=win)),
         "plain_ms": time_ms(lambda: fa_ref.reference(
-            q, k, v, q_positions=pos, k_positions=pos)),
+            q, k, v, q_positions=pos, k_positions=pos, window=win)),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)),
+            qt, kt, vt, **sdpa)),
         "bytes": f_bytes, "flops": f_flops,
     }
     for row in (paged, flash):
         set_bound(row, BF16_FLOPS_PER_S)
+    return {"paged_attention": paged, "flash_attention": flash}
+
+
+def phase_timing(dev, served: dict) -> dict:
+    """TinyLlama's path: the bf16 trace and both attention kernels."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+
+    cfg = served["cfg"]
+    serve, params = time_serve(dev, served)
+    del params
+    rows = attention_timing(dev, cfg, seed=99)
     emit("timing", arch=cfg.name, dtype="bfloat16", serve=serve,
          launches_bf16={"paged_attention": pa_ops.paged_attention.launches,
                         "flash_attention": fa_ops.flash_attention.launches},
-         paged_attention=paged, flash_attention=flash)
-    return {"paged_attention": paged, "flash_attention": flash}
+         **rows)
+    return rows
 
 
 def phase_timing_ssm(dev, served: dict) -> dict:
@@ -600,6 +733,45 @@ def phase_timing_ssm(dev, served: dict) -> dict:
          launches_bf16={"ssd_scan": ssd_ops.ssd_scan.launches},
          ssd_scan=main, ssd_scan_by_prompt=by_len)
     return {"ssd_scan": main}
+
+
+def phase_timing_rg(dev, served: dict) -> dict:
+    """recurrentgemma-2b's path: the bf16 trace, both attention kernels at
+    hd 256 with its window, and the RG-LRU-scan kernel at each of the
+    trace's prompt shapes (one prefill's call: B 1, W 2560, f32 a and bx,
+    the fresh cache's zero state as h0), the 131-row prompt as the summary
+    row."""
+    import torch
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.kernels.rglru_scan import ref as rglru_ref
+
+    cfg = served["cfg"]
+    serve, params = time_serve(dev, served)
+    del params
+    rows = attention_timing(dev, cfg, seed=97)
+    gen = torch.Generator(device=dev).manual_seed(96)
+    W = cfg.lru_width
+    by_len = []
+    for S in PROMPT_LENS:
+        a, bx = rglru_inputs(gen, dev, 1, S, W)
+        h0 = torch.zeros((1, W), device=dev)
+        nbytes, flops = rglru_cost(1, S, W)
+        row = {"S": S,
+               "ms": time_ms(lambda: rglru_ops.rglru_scan(a, bx, h0)),
+               "bytes": nbytes, "flops": flops}
+        if S == PROMPT_LENS[3]:
+            row["plain_ms"] = time_ms(lambda: rglru_ref.reference(a, bx,
+                                                                  h0))
+        by_len.append(set_bound(row, F32_FLOPS_PER_S))
+    main = dict(next(r for r in by_len if r["S"] == PROMPT_LENS[3]))
+    main.update(shape={"B": 1, "S": main.pop("S"), "W": W,
+                       "dtype": "float32", "init_state": True},
+                library_ms=None)
+    emit("timing", arch=cfg.name, dtype="bfloat16", serve=serve,
+         launches_bf16={name: fn.launches
+                        for name, fn in launch_counters().items()},
+         rglru_scan=main, rglru_scan_by_prompt=by_len, **rows)
+    return {"rglru_scan": main, **rows}
 
 
 def main() -> int:
@@ -650,9 +822,16 @@ def main() -> int:
         served_ssm = phase_serve(dev, SSM_ARCH)
         phase = "timing"
         timing.update(phase_timing_ssm(dev, served_ssm))
-        # each kernel's launches on the path that runs it
-        launches = {**served["launches"],
-                    "ssd_scan": served_ssm["launches"]["ssd_scan"]}
+        phase = "serve"
+        served_rg = phase_serve(dev, RG_ARCH)
+        phase = "timing"
+        timing_rg = phase_timing_rg(dev, served_rg)
+        timing["rglru_scan"] = timing_rg.pop("rglru_scan")
+        # each kernel's launches over the main paths' runs, and by path
+        by_path = {s["cfg"].name: s["launches"]
+                   for s in (served, served_ssm, served_rg)}
+        launches = {name: sum(p[name] for p in by_path.values())
+                    for name in launch_counters()}
     except Exception as exc:  # report which phase failed, then fail
         traceback.print_exc()
         emit(phase, ok=False, error=f"{type(exc).__name__}: {exc}")
@@ -665,16 +844,21 @@ def main() -> int:
         "flash_attention":
             "src/repro/kernels/flash_attention/flash_attention.py:90",
         "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:82",
+        "rglru_scan": "src/repro/kernels/rglru_scan/rglru_scan.py:53",
     }
-    summary = [{
-        "name": name, "route": "cuda", "source": src.format(name),
-        "replaces": replaces[name], "launches": launches[name],
-        "max_abs_err": errs[name], "ms": timing[name]["ms"],
-        "plain_ms": timing[name]["plain_ms"],
-        "bound_ms": timing[name]["bound_ms"],
-        "bound_by": timing[name]["bound_by"],
-        "library_ms": timing[name]["library_ms"],
-    } for name in ("paged_attention", "flash_attention", "ssd_scan")]
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    summary = []
+    for name in ("paged_attention", "flash_attention", "ssd_scan",
+                 "rglru_scan"):
+        row = {"name": name, "route": "cuda", "source": src.format(name),
+               "replaces": replaces[name], "launches": launches[name],
+               "max_abs_err": errs[name],
+               **{k: timing[name][k] for k in timed},
+               "launches_by_path": {arch: counts[name] for arch, counts
+                                    in by_path.items() if counts[name]}}
+        if name in timing_rg:        # the same kernel at hd 256
+            row["hd256"] = {k: timing_rg[name][k] for k in timed}
+        summary.append(row)
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,11 @@ from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig
 
-from . import mamba2_370m, tinyllama_1_1b
+from . import mamba2_370m, recurrentgemma_2b, tinyllama_1_1b
 
 _REGISTRY: dict[str, ModelConfig] = {
-    mod.CONFIG.name: mod.CONFIG for mod in (tinyllama_1_1b, mamba2_370m)}
+    mod.CONFIG.name: mod.CONFIG
+    for mod in (tinyllama_1_1b, mamba2_370m, recurrentgemma_2b)}
 
 
 def get(name: str) -> ModelConfig:

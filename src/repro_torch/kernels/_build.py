@@ -26,6 +26,7 @@ SOURCES = {
     "flash_attention": KERNELS_DIR / "flash_attention" / "flash_attention.cu",
     "paged_attention": KERNELS_DIR / "paged_attention" / "paged_attention.cu",
     "ssd_scan": KERNELS_DIR / "ssd_scan" / "ssd_scan.cu",
+    "rglru_scan": KERNELS_DIR / "rglru_scan" / "rglru_scan.cu",
 }
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 64, 128)
+HEAD_DIMS = (16, 64, 128, 256)
 
 
 def require(cond: bool, what: str, msg: str) -> None:

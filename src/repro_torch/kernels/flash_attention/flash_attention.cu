@@ -17,9 +17,14 @@
 // does its products on the CUDA cores in f32 (67 TFLOP/s at most), so it
 // sits far above either bound; wgmma tiles fed by TMA are the later step.
 // What the design does about it:
-//   * one CTA per (64-row query tile, batch x head); the K/V sequence is
-//     walked in 64-row tiles inside the CTA (the TPU's sequential kv grid
-//     axis becomes a loop), so scores never leave the chip;
+//   * one CTA per (query tile, batch x head); the K/V sequence is walked
+//     in tiles inside the CTA (the TPU's sequential kv grid axis becomes a
+//     loop), so scores never leave the chip.  Tiles are 64 rows up to head
+//     dim 128 and 32 rows at 256, which keeps the f32 tiles near 100 KB of
+//     shared memory (two CTAs per SM) instead of 210 KB;
+//   * each thread owns output columns of a few rows: at head dims up to
+//     128 one column of kThreads / HD interleaved rows, at 256 two columns
+//     (d and d + 128) of every row;
 //   * Q, K, V and the score tile live in shared memory as f32 (K padded by
 //     one column so a warp reading 32 key rows hits 32 banks); QK^T and PV
 //     are computed here, not by a library;
@@ -42,8 +47,13 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBQ = 64;  // query rows per CTA
-constexpr int kBK = 64;  // key rows per iteration
+
+// Query rows per CTA and key rows per iteration.
+template <int HD>
+struct Tile {
+  static constexpr int kBQ = HD <= 128 ? 64 : 32;
+  static constexpr int kBK = kBQ;
+};
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -72,6 +82,8 @@ __device__ __forceinline__ bool visible(int qp, int kp, int causal,
 // m, l, alpha [BQ] as floats, then the q and k positions as ints.
 template <int HD>
 constexpr size_t smem_bytes() {
+  constexpr int kBQ = Tile<HD>::kBQ;
+  constexpr int kBK = Tile<HD>::kBK;
   return sizeof(float) * (size_t(kBQ) * HD + size_t(kBK) * (HD + 1) +
                           size_t(kBK) * HD + size_t(kBQ) * (kBK + 1) +
                           3 * size_t(kBQ)) +
@@ -86,10 +98,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const int32_t* __restrict__ k_pos, T* __restrict__ out,
                        int Sq, int Skv, int H, int KV, float scale, int causal,
                        int window, float softcap) {
-  // the thread owning output column d handles rows r0, r0 + kRowStep, ...
-  constexpr int kRowStep = kThreads / HD;
+  constexpr int kBQ = Tile<HD>::kBQ;
+  constexpr int kBK = Tile<HD>::kBK;
+  // kColThreads threads share a row: the thread owning columns d_own +
+  // j * kColThreads (j < kCols) handles rows r0, r0 + kRowStep, ...
+  constexpr int kColThreads = HD < kThreads ? HD : kThreads;
+  constexpr int kCols = HD / kColThreads;
+  constexpr int kRowStep = kThreads / kColThreads;
   constexpr int kAcc = kBQ / kRowStep;
-  static_assert(kThreads % HD == 0, "head dim must divide the block");
+  static_assert(kThreads % kColThreads == 0 && HD % kColThreads == 0 &&
+                    kBQ % kRowStep == 0,
+                "head dim and block must tile each other");
 
   const int q0 = blockIdx.x * kBQ;
   const int b = blockIdx.y / H;
@@ -98,8 +117,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int d_own = tid % HD;
-  const int r0 = tid / HD;
+  const int d_own = tid % kColThreads;
+  const int r0 = tid / kColThreads;
 
   extern __shared__ float smem[];
   float* q_s = smem;
@@ -123,9 +142,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     m_s[r] = kNegInf;
     l_s[r] = 0.f;
   }
-  float acc[kAcc];
+  float acc[kAcc][kCols];
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kAcc; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < Skv; k0 += kBK) {
     __syncthreads();  // previous tile fully consumed (and q staged)
@@ -194,15 +215,19 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    // acc = alpha * acc + P V for this thread's column
+    // acc = alpha * acc + P V for this thread's columns
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) {
       const int r = r0 + i * kRowStep;
       const float* prow = s_s + r * (kBK + 1);
-      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int d = d_own + j * kColThreads;
+        float sum = 0.f;
 #pragma unroll 8
-      for (int c = 0; c < kBK; ++c) sum = fmaf(prow[c], v_s[c * HD + d_own], sum);
-      acc[i] = a_s[r] * acc[i] + sum;
+        for (int c = 0; c < kBK; ++c) sum = fmaf(prow[c], v_s[c * HD + d], sum);
+        acc[i][j] = a_s[r] * acc[i][j] + sum;
+      }
     }
   }
   __syncthreads();
@@ -211,9 +236,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kAcc; ++i) {
     const int r = r0 + i * kRowStep;
     const int qi = q0 + r;
-    if (qi < Sq)
-      out[((size_t(b) * Sq + qi) * H + h) * HD + d_own] =
-          from_f32<T>(acc[i] / fmaxf(l_s[r], 1e-30f));
+    if (qi < Sq) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        out[((size_t(b) * Sq + qi) * H + h) * HD + d_own + j * kColThreads] =
+            from_f32<T>(acc[i][j] / fmaxf(l_s[r], 1e-30f));
+    }
   }
 }
 
@@ -229,6 +257,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return err;
   }
+  constexpr int kBQ = Tile<HD>::kBQ;
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -253,6 +282,9 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                            scale, causal, window, softcap, stream);
     case 128:
       return launch<T, 128>(q, k, v, q_pos, k_pos, out, B, Sq, Skv, H, KV,
+                            scale, causal, window, softcap, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, q_pos, k_pos, out, B, Sq, Skv, H, KV,
                             scale, causal, window, softcap, stream);
     default:
       return cudaErrorInvalidValue;

@@ -5,7 +5,7 @@ A CUDA tensor launches the hand-written Hopper kernel
 the ragged edges itself.  A CPU tensor runs the plain PyTorch version
 (``ref.reference``).  What the kernel does not take raises on either
 device: ``H % KV != 0``, a V head dim that differs from Q's (MLA comes with
-a later kernel), a head dim outside 16/64/128, a dtype other than
+a later kernel), a head dim outside 16/64/128/256, a dtype other than
 float32/bfloat16, non-contiguous inputs.  There is no quiet fallback.
 
 ``flash_attention.launches`` counts kernel launches (CPU calls do not

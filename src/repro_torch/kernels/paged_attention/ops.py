@@ -3,8 +3,8 @@
 A CUDA tensor launches the hand-written Hopper kernel
 (``paged_attention.cu``); a CPU tensor runs the plain PyTorch version
 (``ref.reference``).  What the kernel does not take raises on either
-device: ``H % KV != 0``, a head dim outside 16/64/128, a dtype other than
-float32/bfloat16, non-contiguous inputs.  There is no quiet fallback.
+device: ``H % KV != 0``, a head dim outside 16/64/128/256, a dtype other
+than float32/bfloat16, non-contiguous inputs.  There is no quiet fallback.
 
 ``paged_attention.launches`` counts kernel launches (CPU calls do not
 count), so a caller can show that a run went through the kernel.

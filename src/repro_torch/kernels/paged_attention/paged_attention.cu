@@ -63,8 +63,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Rows of K/V staged per iteration: 64 for head dims up to 64, 32 for 128,
-// which keeps the K and V tiles near 33 KB of shared memory.
+// Rows of K/V staged per iteration: 64 for head dims up to 64, 32 above,
+// which keeps the K and V tiles near 33 KB of shared memory up to head dim
+// 128 and near 66 KB at 256 (with recurrentgemma's 10 heads per KV head
+// the whole CTA takes 87.5 KB, through the dynamic shared-memory limit).
 template <int HD>
 struct Tile {
   static constexpr int kRows = HD <= 64 ? 64 : 32;
@@ -246,6 +248,9 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k_pages,
                            bs, max_blocks, scale, softcap, window, stream);
     case 128:
       return launch<T, 128>(q, k_pages, v_pages, tables, lens, out, B, H, KV,
+                            bs, max_blocks, scale, softcap, window, stream);
+    case 256:
+      return launch<T, 256>(q, k_pages, v_pages, tables, lens, out, B, H, KV,
                             bs, max_blocks, scale, softcap, window, stream);
     default:
       return cudaErrorInvalidValue;

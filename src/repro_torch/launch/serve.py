@@ -1,15 +1,22 @@
 """Serving launcher of the port: static batch, or continuous batching over
-the paged KV cache (and, for mamba2, per-lane recurrent state slabs).
+the paged KV cache (window block rings for sliding-window layers, and
+per-lane recurrent state slabs for mamba2's and recurrentgemma's
+recurrent layers).
 
 Usage (on the CUDA card; ``--device cpu`` runs the plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --continuous --paged
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --continuous --paged
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-2b --continuous --paged
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --reduced --batch 4 --prompt-len 16 --max-new 32 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --reduced --continuous --paged --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-2b --reduced --continuous --paged \
+        --prompt-len 40 --kv-len 96 --device cpu
 
 Weights are random, drawn from ``--seed`` with a ``torch.Generator`` on
 the serving device; prompts come from the same generator.

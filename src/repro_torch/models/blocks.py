@@ -1,7 +1,8 @@
-"""Model blocks of the dense decoder: RMSNorm, RoPE, GQA attention over no
-cache, a dense cache or a paged block pool, and the gated FFN.
+"""Model blocks of the dense decoder: RMSNorm, RoPE, GQA attention (global
+or sliding-window) over no cache, a dense cache or a paged block pool, and
+the gated FFN.
 
-A port of ``repro.models.blocks`` (the global-attention, dense-FFN subset).
+A port of ``repro.models.blocks`` (the attention and dense-FFN subset).
 Parameters are plain dicts of tensors under the reference's keys.  Attention
 has two implementations, chosen by ``impl``:
 
@@ -151,13 +152,17 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, repeats: int,
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, kv_len: int, dtype,
-                    device) -> dict:
-    shape = (batch, kv_len, cfg.n_kv_heads, cfg.head_dim)
+                    device, local: bool = False) -> dict:
+    """Dense K/V cache; a sliding-window layer holds only ``min(kv_len,
+    window)`` rows, filled as a ring (slot = position % size)."""
+    size = min(kv_len, cfg.window_size) if (local and cfg.window_size) \
+        else kv_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         # absolute position held by each slot; -1 = empty
-        "pos": torch.full((kv_len,), -1, dtype=torch.int32, device=device),
+        "pos": torch.full((size,), -1, dtype=torch.int32, device=device),
     }
 
 
@@ -200,18 +205,20 @@ def attn_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *, local: bool,
                positions: torch.Tensor, cache: Optional[dict] = None,
                impl: str = "kernel",
                paged_tables: Optional[torch.Tensor] = None) -> tuple:
-    """Pre-norm global-attention block. Returns (residual output, cache).
+    """Pre-norm attention block, global or (``local``) sliding-window over
+    ``cfg.window_size``.  Returns (residual output, cache).
 
     No cache or a prefill cache: ``positions`` = [S].  Dense decode: x is
     [B, 1, D] and ``positions`` a 0-d tensor of the current position.
     Paged decode (cache holds ``k_pages``/``v_pages``, ``paged_tables`` is
     [B, max_blocks]): x is [B, 1, D] and ``positions`` = [B] per-lane
     positions; each lane's row is written through its table, then the
-    paged kernel attends over the lane's resident rows."""
-    if local:
-        raise NotImplementedError(
-            "sliding-window layers are not ported yet")
+    paged kernel attends over the lane's resident rows.  A local layer's
+    table is its lane's window ring (entries behind the window are the
+    null page) and the window mask keeps rows behind ``pos - window``
+    out."""
     B, S, _ = x.shape
+    window = cfg.window_size if local else 0
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q = (h @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
     k = (h @ p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
@@ -233,44 +240,58 @@ def attn_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *, local: bool,
         if impl == "kernel":
             o = pa_ops.paged_attention(
                 q[:, 0], cache["k_pages"], cache["v_pages"], paged_tables,
-                ctx, logit_softcap=cap)[:, None]
+                ctx, logit_softcap=cap, window=window)[:, None]
         elif impl == "plain":
             o = pa_ref.reference(
                 q, cache["k_pages"], cache["v_pages"], paged_tables, ctx,
-                q_positions=pos[:, None], logit_softcap=cap)
+                q_positions=pos[:, None], logit_softcap=cap, window=window)
         else:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     elif cache is None or S > 1:       # no cache, or prefill filling one
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         o = attention(q, k, v, q_positions=positions, k_positions=positions,
-                      causal=True, logit_softcap=cap, impl=impl)
+                      causal=True, window=window, logit_softcap=cap,
+                      impl=impl)
         if cache is not None:
-            _prefill_cache(cache, k, v, positions)
+            _prefill_cache(cache, k, v, positions, window)
     else:                              # dense decode step
         pos = positions.reshape(())
         q = apply_rope(q, pos[None], cfg.rope_theta)
         k = apply_rope(k, pos[None], cfg.rope_theta)
         # index_copy_ keeps the slot on the device (no host round trip)
-        slot = pos.clamp(max=cache["k"].shape[1] - 1).long().reshape(1)
+        size = cache["k"].shape[1]
+        slot = (torch.remainder(pos, size) if window
+                else pos.clamp(max=size - 1)).long().reshape(1)
         cache["k"].index_copy_(1, slot, k)
         cache["v"].index_copy_(1, slot, v)
         cache["pos"].index_copy_(0, slot, pos.to(torch.int32).reshape(1))
         o = attention(q, cache["k"], cache["v"], q_positions=pos[None],
-                      k_positions=cache["pos"], causal=True,
+                      k_positions=cache["pos"], causal=True, window=window,
                       logit_softcap=cap, impl=impl)
 
     out = o.reshape(B, S, cfg.q_dim) @ p["wo"]
     return x + out, cache
 
 
-def _prefill_cache(cache: dict, k, v, positions) -> dict:
-    """Global layers: the prompt's rows (the last ``size`` of them when the
-    prompt is longer than the cache) fill slots 0.., in place."""
-    n = min(k.shape[1], cache["k"].shape[1])
-    cache["k"][:, :n] = k[:, -n:]
-    cache["v"][:, :n] = v[:, -n:]
-    cache["pos"][:n] = positions[-n:].to(torch.int32)
+def _prefill_cache(cache: dict, k, v, positions, window: int = 0) -> dict:
+    """The prompt's rows into the dense cache, in place.  Global layers,
+    and window layers whose prompt fits: the rows (the last ``size`` of
+    them when the prompt is longer than the cache) fill slots 0..  A
+    window layer's longer prompt: its last ``size`` rows go to their ring
+    slots, position % size."""
+    size = cache["k"].shape[1]
+    if not window or k.shape[1] <= size:
+        n = min(k.shape[1], size)
+        cache["k"][:, :n] = k[:, -n:]
+        cache["v"][:, :n] = v[:, -n:]
+        cache["pos"][:n] = positions[-n:].to(torch.int32)
+        return cache
+    tail_pos = positions[-size:].to(torch.int32)
+    slots = torch.remainder(tail_pos, size).long()
+    cache["k"][:, slots] = k[:, -size:]
+    cache["v"][:, slots] = v[:, -size:]
+    cache["pos"][slots] = tail_pos
     return cache
 
 

@@ -1,14 +1,15 @@
-"""Model assembly for decoder-only archs built of global-attention +
-dense-FFN layers and Mamba-2 SSD layers: parameter init, caches (dense and
-paged) and ``forward`` in prefill and decode modes.
+"""Model assembly for decoder-only archs built of global- or
+sliding-window-attention layers with a dense FFN, Mamba-2 SSD layers and
+RG-LRU layers with a dense FFN: parameter init, caches (dense and paged)
+and ``forward`` in prefill and decode modes.
 
 A port of the matching subset of ``repro.models.lm``.  Parameters and
-caches keep the reference's tree — ``seg{i}/c{j}/{attn,ffn,ssd}/...`` with
-a stacked leading layer axis per segment — and ``_run_segment`` walks that
-axis with a Python loop where the reference scans.  Cache writes happen in
-place (see ``blocks``); SSD layers return their new conv tail and state,
-and this module writes them into the cache tree (or, in a paged decode
-step, hands them to ``freeze_state_lanes``).
+caches keep the reference's tree — ``seg{i}/c{j}/{attn,ffn,ssd,rglru}/...``
+with a stacked leading layer axis per segment — and ``_run_segment`` walks
+that axis with a Python loop where the reference scans.  Cache writes
+happen in place (see ``blocks``); recurrent (SSD, RG-LRU) layers return
+their new conv tail and state, and this module writes them into the cache
+tree (or, in a paged decode step, hands them to ``freeze_state_lanes``).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-from . import blocks, ssm
+from . import blocks, rglru, ssm
 from .blocks import rms_norm, softcap
 from .config import LayerSpec, ModelConfig, Segment
 
@@ -28,13 +29,15 @@ from .config import LayerSpec, ModelConfig, Segment
 _MIXER_GROUP = {"global": "paged", "mla": "paged", "local": "window",
                 "ssd": "recurrent", "rglru": "recurrent"}
 # layer kinds the port runs
-_PORTED = frozenset({"global+dense", "ssd+none"})
-_STATE_MIXERS = ("ssd",)
+_PORTED = frozenset({"global+dense", "local+dense", "ssd+none",
+                     "rglru+dense"})
+_STATE_MIXERS = ("ssd", "rglru")
 
 
 def unsupported_reason(cfg: ModelConfig) -> Optional[str]:
     """Why the port cannot run ``cfg`` yet, or None: it runs decoder-only
-    stacks of global-attention + dense-FFN layers and SSD layers."""
+    stacks of global- or sliding-window-attention layers and RG-LRU layers
+    (each with a dense FFN) and SSD layers."""
     if cfg.n_enc_layers:
         return "encoder-decoder archs are not ported yet"
     if cfg.frontend:
@@ -59,10 +62,12 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                 repeats: int, dtype, device) -> dict:
     """One cycle entry's parameters, stacked to ``[repeats, ...]``."""
     p: dict = {}
-    if spec.mixer == "global":
+    if spec.mixer in ("global", "local"):
         p["attn"] = blocks.init_attention(gen, cfg, repeats, dtype, device)
     elif spec.mixer == "ssd":
         p["ssd"] = ssm.init_ssd(gen, cfg, repeats, dtype, device)
+    elif spec.mixer == "rglru":
+        p["rglru"] = rglru.init_rglru(gen, cfg, repeats, dtype, device)
     if spec.ffn == "dense":
         p["ffn"] = blocks.init_ffn(gen, cfg, repeats, dtype, device)
     return p
@@ -71,9 +76,10 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
                 dtype=torch.bfloat16) -> dict:
     """Random parameters with the reference's distributions: embed
-    N(0, 0.02^2), dense weights N(0, 1/d_in), norm scales zero (SSD
-    leaves as ``ssm.init_ssd``).  ``device`` defaults to the CUDA card
-    (and must be that of ``generator``)."""
+    N(0, 0.02^2), dense weights N(0, 1/d_in), norm scales zero (SSD and
+    RG-LRU leaves as ``ssm.init_ssd`` and ``rglru.init_rglru``).
+    ``device`` defaults to the CUDA card (and must be that of
+    ``generator``)."""
     _check_supported(cfg)
     device = resolve_device(device)
     d = cfg.d_model
@@ -102,17 +108,23 @@ def _stacked(leaf: dict, repeats: int) -> dict:
 def init_cache(cfg: ModelConfig, batch: int, kv_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """Dense decode/prefill cache mirroring the segment structure of the
-    params, stacked along a leading layer axis: per global layer
-    ``{"attn": {"k", "v": [B, kv_len, KV, hd], "pos": [kv_len]}}``, per SSD
-    layer ``{"ssd": {"conv", "state"}}`` (``ssm.init_ssd_cache``)."""
+    params, stacked along a leading layer axis: per attention layer
+    ``{"attn": {"k", "v": [B, size, KV, hd], "pos": [size]}}`` (size
+    ``kv_len``, or ``min(kv_len, window)`` for a sliding-window layer), per
+    SSD or RG-LRU layer ``{mixer: {"conv", "state"}}``
+    (``ssm.init_ssd_cache``, ``rglru.init_rglru_cache``)."""
     _check_supported(cfg)
     device = resolve_device(device)
 
     def layer_cache(spec: LayerSpec) -> dict:
         if spec.mixer == "ssd":
             return {"ssd": ssm.init_ssd_cache(cfg, batch, dtype, device)}
-        return {"attn": blocks.init_attn_cache(cfg, batch, kv_len, dtype,
-                                               device)}
+        if spec.mixer == "rglru":
+            return {"rglru": rglru.init_rglru_cache(cfg, batch, dtype,
+                                                    device)}
+        return {"attn": blocks.init_attn_cache(
+            cfg, batch, kv_len, dtype, device,
+            local=spec.mixer == "local")}
 
     return {f"seg{si}": {
         f"c{ci}": {k: _stacked(v, seg.repeats)
@@ -123,8 +135,9 @@ def init_cache(cfg: ModelConfig, batch: int, kv_len: int,
 
 def serve_groups(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     """Per-layer serving report: cache group -> layer indices ("paged":
-    global attention behind block tables; "recurrent": O(1) per-slot scan
-    state; "window" is not served by the port yet)."""
+    global attention behind growing block tables; "window": sliding-window
+    attention behind per-slot block rings; "recurrent": O(1) per-slot scan
+    state)."""
     out: dict[str, list[int]] = {"paged": [], "window": [], "recurrent": []}
     for li, spec in enumerate(cfg.layers()):
         out[_MIXER_GROUP[spec.mixer]].append(li)
@@ -135,16 +148,20 @@ def init_paged_caches(cfg: ModelConfig, n_slots: int, n_pages: int,
                       block_size: int, dtype=torch.bfloat16,
                       device=None) -> dict:
     """Paged decode cache, stacked to ``[repeats, ...]`` like
-    ``init_cache``: per global-attention layer a pair of ``[n_pages,
-    block_size, KV, hd]`` K/V pools (no slot axis: lanes are carved out by
-    block tables), per SSD layer slot-stacked recurrent state ``[repeats,
-    n_slots, ...]`` (one lane per slot, no blocks)."""
+    ``init_cache``: per attention layer a pair of ``[n_pages, block_size,
+    KV, hd]`` K/V pools (no slot axis: lanes are carved out by block
+    tables, a sliding-window layer's by window ring tables), per SSD or
+    RG-LRU layer slot-stacked recurrent state ``[repeats, n_slots, ...]``
+    (one lane per slot, no blocks)."""
     _check_supported(cfg)
     device = resolve_device(device)
 
     def leaf(spec: LayerSpec) -> dict:
         if spec.mixer == "ssd":
             return {"ssd": ssm.init_ssd_cache(cfg, n_slots, dtype, device)}
+        if spec.mixer == "rglru":
+            return {"rglru": rglru.init_rglru_cache(cfg, n_slots, dtype,
+                                                    device)}
         return {"attn": blocks.init_paged_attn_cache(cfg, n_pages,
                                                      block_size, dtype,
                                                      device)}
@@ -164,11 +181,14 @@ def _cache_entries(cfg: ModelConfig, caches: dict):
 
 def paged_cache_leaves(cfg: ModelConfig, caches: dict) -> list[tuple]:
     """(group, (a_key, b_key), leaf) for every physical pool leaf, in a
-    fixed order; the engine binds one ``PagedKVStore`` per leaf.  Recurrent
-    state leaves are not listed (see ``state_cache_leaves``)."""
-    return [("global", ("k_pages", "v_pages"), entry["attn"])
+    fixed order: group "global" for global attention, "window" for
+    sliding-window attention; the engine binds one ``PagedKVStore`` per
+    leaf, tagged with its group.  Recurrent state leaves are not listed
+    (see ``state_cache_leaves``)."""
+    return [("window" if spec.mixer == "local" else "global",
+             ("k_pages", "v_pages"), entry["attn"])
             for spec, entry in _cache_entries(cfg, caches)
-            if spec.mixer == "global"]
+            if spec.mixer in ("global", "local")]
 
 
 def state_cache_leaves(cfg: ModelConfig, caches: dict) -> list[dict]:
@@ -238,10 +258,12 @@ def insert_paged_prompt(cfg: ModelConfig, caches: dict, single: dict,
                         null_block: int) -> dict:
     """Scatter a dense single-request prefill cache (``init_cache(cfg, 1,
     kv_len)`` after a prefill) into the paged tree, in place: attention
-    rows go to the physical blocks the lane's table row
-    (``tables["global"]``, [W]) names, at their absolute positions (rows
-    whose position is -1 go to the null page); SSD conv tail and state go
-    into lane ``slot``.  Other lanes are untouched.  Returns ``caches``."""
+    rows go to the physical blocks the lane's table row names
+    (``tables["global"]``, or ``tables["window"]`` for a sliding-window
+    layer, [W] each), at their absolute positions (rows whose position is
+    -1, or whose block the table does not cover, as behind a window ring,
+    go to the null page); SSD and RG-LRU conv tail and state go into lane
+    ``slot``.  Other lanes are untouched.  Returns ``caches``."""
     for (spec, entry), (_, one) in zip(_cache_entries(cfg, caches),
                                        _cache_entries(cfg, single)):
         if spec.mixer in _STATE_MIXERS:
@@ -249,8 +271,9 @@ def insert_paged_prompt(cfg: ModelConfig, caches: dict, single: dict,
             continue
         leaf, sl = entry["attn"], one["attn"]
         cpos = sl["pos"][0]                 # identical across repeats
+        row = tables["window" if spec.mixer == "local" else "global"]
         for pool, rows in (("k_pages", sl["k"]), ("v_pages", sl["v"])):
-            _scatter_rows(leaf[pool], tables["global"], cpos, rows[:, 0],
+            _scatter_rows(leaf[pool], row, cpos, rows[:, 0],
                           block_size=block_size, null_block=null_block)
     return caches
 
@@ -270,13 +293,14 @@ def _index(tree: dict, r: int) -> dict:
 
 def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, h, *,
                  positions, cache: Optional[dict], impl: str,
-                 paged_tables=None, key: tuple = (),
+                 paged_tables=None, window_tables=None, key: tuple = (),
                  state_sink: Optional[StateSink] = None):
-    """One layer (global attention + dense FFN, or SSD); returns the new
-    residual."""
-    if spec.mixer == "ssd":
-        sc = cache["ssd"] if cache else None
-        h, new = ssm.ssd_layer(cfg, p["ssd"], h, cache=sc, impl=impl)
+    """One layer (global or sliding-window attention, SSD or RG-LRU, then
+    its FFN); returns the new residual."""
+    if spec.mixer in _STATE_MIXERS:
+        layer = ssm.ssd_layer if spec.mixer == "ssd" else rglru.rglru_layer
+        sc = cache[spec.mixer] if cache else None
+        h, new = layer(cfg, p[spec.mixer], h, cache=sc, impl=impl)
         if new is not None:
             if state_sink is not None and h.shape[1] == 1:
                 state_sink(key, new)
@@ -284,10 +308,13 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, h, *,
                 for k, t in new.items():
                     sc[k].copy_(t)
     else:
-        h, _ = blocks.attn_layer(cfg, p["attn"], h, local=False,
+        local = spec.mixer == "local"
+        h, _ = blocks.attn_layer(cfg, p["attn"], h, local=local,
                                  positions=positions,
                                  cache=cache["attn"] if cache else None,
-                                 impl=impl, paged_tables=paged_tables)
+                                 impl=impl,
+                                 paged_tables=(window_tables if local
+                                               else paged_tables))
     if spec.ffn == "dense":
         h = blocks.ffn_layer(cfg, p["ffn"], h)
     return h
@@ -295,13 +322,15 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, h, *,
 
 def _run_segment(cfg: ModelConfig, si: int, seg: Segment, seg_p: dict, h,
                  *, positions, seg_cache, impl: str, paged_tables=None,
+                 window_tables=None,
                  state_sink: Optional[StateSink] = None):
     for r in range(seg.repeats):
         for ci, spec in enumerate(seg.cycle):
             lc = _index(seg_cache[f"c{ci}"], r) if seg_cache else None
             h = _apply_layer(cfg, spec, _index(seg_p[f"c{ci}"], r), h,
                              positions=positions, cache=lc, impl=impl,
-                             paged_tables=paged_tables, key=(si, ci, r),
+                             paged_tables=paged_tables,
+                             window_tables=window_tables, key=(si, ci, r),
                              state_sink=state_sink)
     return h
 
@@ -311,14 +340,17 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             cache: Optional[dict] = None, mode: str = "prefill",
             impl: str = "kernel",
             paged_tables: Optional[torch.Tensor] = None,
+            window_tables: Optional[torch.Tensor] = None,
             state_sink: Optional[StateSink] = None) -> tuple:
     """Returns (logits [B, S, padded_vocab], cache).
 
     tokens: [B, S] (decode: [B, 1]).  positions: [S] int32 absolute
     positions (default ``arange(S)``); decode: a 0-d tensor with a dense
     cache, or [B] per-lane positions with a paged cache from
-    ``init_paged_caches`` and its ``paged_tables`` [B, max_blocks].
-    ``cache`` is updated in place and returned.  ``state_sink(key,
+    ``init_paged_caches`` and its ``paged_tables`` [B, max_blocks] (global
+    layers) and ``window_tables`` [B, max_blocks] (sliding-window layers:
+    window ring tables, entries behind the window null).  ``cache`` is
+    updated in place and returned.  ``state_sink(key,
     leaves)``, when given, receives each recurrent layer's new decode state
     instead of the cache (``key`` = (segment, cycle entry, repeat)): a
     paged decode step passes it on to ``freeze_state_lanes``."""
@@ -339,6 +371,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                          positions=positions,
                          seg_cache=cache[f"seg{si}"] if cache else None,
                          impl=impl, paged_tables=paged_tables,
+                         window_tables=window_tables,
                          state_sink=state_sink)
 
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)

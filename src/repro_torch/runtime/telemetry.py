@@ -30,7 +30,7 @@ class ServeStep:
     new_tokens: int = 0          # decode tokens emitted
     resident_bytes: int = 0
     capacity_bytes: int = 0
-    # residency by cache group: {"global": bytes, "recurrent": bytes}
+    # residency by cache group: {"global"/"window"/"recurrent": bytes}
     resident_by_group: dict = field(default_factory=dict)
     prefill_seconds: float = 0.0
     decode_seconds: float = 0.0
@@ -111,9 +111,10 @@ class ServeTelemetry:
         return self._peak_resident_bytes
 
     def peak_resident_bytes_by_group(self) -> dict:
-        """Peak residency per cache group ({"global"/"recurrent"} ->
-        bytes); the recurrent entry is bounded by n_slots state slots
-        whatever the generated length."""
+        """Peak residency per cache group ({"global"/"window"/"recurrent"}
+        -> bytes); the window entry is bounded by n_slots rings at their
+        cap and the recurrent entry by n_slots state slots, whatever the
+        generated length."""
         return dict(self._peak_group_bytes)
 
     def max_concurrency(self) -> int:

@@ -1,16 +1,20 @@
 """Block (paged) KV cache of the continuous-batching engine: the host-side
 ``BlockAllocator`` and the physical ``PagedKVStore``.
 
-The port's copy of the global-attention and recurrent-state parts of
-``repro.serve.cache``.  Cache memory is divided into blocks of
-``block_size`` tokens; each admitted request owns a per-slot block table
-that grows one block at a time as it decodes, and every block returns to
-the free list when the request finishes.  Admission reserves a request's
-worst case (``prompt + max_new`` tokens), so decode can never run out of
-blocks.  A model with recurrent (SSD) layers also holds one state slot per
-live request (its lane's O(1) state slabs), accounted apart from the
-blocks; a model with no attention layer holds no blocks at all
-(``CacheLayout``).
+The port's copy of the global-attention, sliding-window and
+recurrent-state parts of ``repro.serve.cache``.  Cache memory is divided
+into blocks of ``block_size`` tokens; each admitted request owns a
+per-slot block table that grows one block at a time as it decodes, and
+every block returns to the free list when the request finishes.  A model
+with sliding-window layers gives each request a block *ring* instead
+(logical block -> physical block): blocks that fall fully behind ``pos -
+window`` go back to the free list as the request decodes, so a window lane
+pins O(window) blocks whatever its length.  Admission reserves a request's
+worst case (``prompt + max_new`` tokens, a ring at its cap), so decode can
+never run out of blocks.  A model with recurrent (SSD, RG-LRU) layers also
+holds one state slot per live request (its lane's O(1) state slabs),
+accounted apart from the blocks; a model with no attention layer holds no
+blocks at all (``CacheLayout``).
 
 Failures are typed as in the reference: ``CacheExhausted`` (a
 ``MemoryError``) is expected backpressure, ``AllocatorInvariantError`` (an
@@ -69,10 +73,14 @@ class CacheLayout:
     reference's ``CacheLayout`` less the groups the port does not serve
     yet.  Built by the engine from ``models.lm.serve_groups`` and installed
     with ``BlockAllocator.set_layout``; the default is the global-only
-    regime.  ``state_slots``/``state_bytes_per_slot`` describe the
-    recurrent lanes (0 slots = no recurrent group)."""
+    regime.  ``window`` is the sliding-window width (0 = no window group)
+    and ``window_cap_blocks`` the admission price of one ring: the most
+    blocks a lane can pin at once.  ``state_slots``/``state_bytes_per_slot``
+    describe the recurrent lanes (0 slots = no recurrent group)."""
 
     has_global: bool = True
+    window: int = 0
+    window_cap_blocks: int = 0
     state_slots: int = 0
     state_bytes_per_slot: int = 0
 
@@ -144,17 +152,19 @@ class PagedKVStore:
 
 
 class BlockAllocator:
-    """Free-list block allocator with one growing block table per slot,
-    and a state slot per live request when the layout has a recurrent
-    group.
+    """Free-list block allocator with one growing block table per slot
+    (``tables``), a window block ring per slot when the layout has a
+    window group (``window_tables``: logical block -> physical block), and
+    a state slot per live request when it has a recurrent group.
 
     Admissions may carry a worst-case reservation (``reserve_tokens``):
     the reserved but not yet claimed blocks of every live slot are
     subtracted from what ``can_allocate`` promises the next admission, and
-    a slot's own ``extend``s draw on its reservation, so a reserving
-    scheduler never sees ``CacheExhausted`` mid-decode.  The free list is
-    LIFO, with blocks claimed and returned in the reference's order, so
-    both allocators hand out the same block ids for the same operations.
+    a slot's own ``extend``s (and ring slides) draw on its reservation, so
+    a reserving scheduler never sees ``CacheExhausted`` mid-decode.  The
+    free list is LIFO, with blocks claimed and returned in the reference's
+    order, so both allocators hand out the same block ids for the same
+    operations.
     """
 
     def __init__(self, config: CacheConfig,
@@ -162,9 +172,12 @@ class BlockAllocator:
         self.config = config
         self._free: list[int] = list(range(config.n_blocks - 1, -1, -1))
         self.tables: dict[int, list[int]] = {}     # slot -> block ids
+        # slot -> {logical block index: physical block} window ring
+        self.window_tables: dict[int, dict[int, int]] = {}
         self._tokens: dict[int, int] = {}          # slot -> resident tokens
         self._reserve: dict[int, int] = {}         # slot -> reserved blocks
         self.stores: list[PagedKVStore] = []
+        self.store_groups: list[str] = []
         self.layout = CacheLayout()
         self._state_slots: set[int] = set()
         if store is not None:
@@ -172,7 +185,7 @@ class BlockAllocator:
 
     def set_layout(self, layout: CacheLayout) -> None:
         """Install the engine's cache-group layout (before any admission)."""
-        if self.tables or self._state_slots:
+        if self.tables or self.window_tables or self._state_slots:
             raise ValueError("cannot change layout with live allocations")
         self.layout = layout
 
@@ -189,19 +202,36 @@ class BlockAllocator:
     def n_in_use(self) -> int:
         return self.config.n_blocks - self.n_free
 
+    def _global_blocks(self, n_tokens: int) -> int:
+        """Global-table blocks covering ``n_tokens`` (none without a global
+        group)."""
+        return self.config.blocks_for(n_tokens) if self.layout.has_global \
+            else 0
+
     def blocks_needed(self, n_tokens: int,
                       reserve_tokens: Optional[int] = None) -> int:
-        """Admission price: blocks for ``n_tokens``, or for the worst case
-        ``reserve_tokens`` when that is larger (none without a global
-        group)."""
-        if not self.layout.has_global:
-            return 0
-        return self.config.blocks_for(max(n_tokens, reserve_tokens or 0))
+        """Admission price of ``n_tokens``, or of the worst case
+        ``reserve_tokens`` when that is larger: a global table grows with
+        the context; a window ring is capped at ``window_cap_blocks``
+        whatever the length."""
+        n = max(n_tokens, reserve_tokens or 0)
+        need = self._global_blocks(n)
+        if self.layout.window:
+            need += min(self.config.blocks_for(n),
+                        self.layout.window_cap_blocks)
+        return need
 
     def outstanding_blocks(self) -> int:
-        """Blocks promised to live reservations but not yet claimed."""
-        return sum(max(0, reserved - len(self.tables.get(slot, ())))
-                   for slot, reserved in self._reserve.items())
+        """Blocks promised to live reservations but not yet claimed: each
+        reservation's remaining global growth plus its ring's headroom up
+        to the cap."""
+        out = 0
+        for slot, reserved in self._reserve.items():
+            out += max(0, reserved - len(self.tables.get(slot, ())))
+            if self.layout.window and slot in self.window_tables:
+                out += max(0, self.layout.window_cap_blocks
+                           - len(self.window_tables[slot]))
+        return out
 
     def n_available(self) -> int:
         """Blocks the next admission may be promised."""
@@ -229,9 +259,10 @@ class BlockAllocator:
                  reserve_tokens: Optional[int] = None) -> list[int]:
         """Claim blocks for a request admitted into ``slot`` holding
         ``n_tokens`` (prompt + first generated token); with
-        ``reserve_tokens`` also reserve blocks for its worst case; with a
+        ``reserve_tokens`` also reserve blocks for its worst case (its
+        ring at the cap); with a window group place its ring; with a
         recurrent group also take the slot's state slot.  Returns the
-        slot's block ids (none without a global group)."""
+        slot's global block ids (none without a global group)."""
         if slot in self.tables:
             raise AllocatorInvariantError(
                 f"slot {slot} already has an allocation")
@@ -240,15 +271,28 @@ class BlockAllocator:
                 f"need {self.blocks_needed(n_tokens, reserve_tokens)} blocks "
                 f"for {n_tokens} tokens, {self.n_available()} available "
                 f"({self.n_free} free, {self.outstanding_blocks()} reserved)")
-        need = self.blocks_needed(n_tokens)
-        table = self._claim(need, f"slot {slot}")
+        table = self._claim(self._global_blocks(n_tokens), f"slot {slot}")
         self.tables[slot] = table
         self._tokens[slot] = n_tokens
         if reserve_tokens is not None and self.layout.has_global:
             self._reserve[slot] = self.config.blocks_for(reserve_tokens)
+        if self.layout.window:
+            self._allocate_window(slot, n_tokens)
+            if reserve_tokens is not None:
+                self._reserve.setdefault(slot, 0)
         if self.layout.state_slots:
             self._state_slots.add(slot)
         return list(table)
+
+    def _allocate_window(self, slot: int, n_tokens: int) -> None:
+        """Initial window ring: a whole-prompt prefill lands only the last
+        ``window`` positions in the ring, so cover the blocks holding
+        ``[max(0, p - window + 1), p]``, p = ``n_tokens - 1``."""
+        bs, W = self.config.block_size, self.layout.window
+        p = n_tokens - 1
+        lo = max(0, p - W + 1) // bs
+        blocks = self._claim(p // bs - lo + 1, f"slot {slot} window ring")
+        self.window_tables[slot] = {lo + i: b for i, b in enumerate(blocks)}
 
     def extend(self, slot: int, n_tokens_total: int) -> list[int]:
         """Grow ``slot``'s table to cover ``n_tokens_total`` resident
@@ -261,7 +305,7 @@ class BlockAllocator:
             raise AllocatorInvariantError(
                 f"slot {slot}: cannot shrink {self._tokens[slot]} -> "
                 f"{n_tokens_total}")
-        need = self.blocks_needed(n_tokens_total) - len(self.tables[slot])
+        need = self._global_blocks(n_tokens_total) - len(self.tables[slot])
         if need > 0:
             own = max(0, self._reserve.get(slot, 0) - len(self.tables[slot]))
             extra = max(0, need - own)
@@ -274,16 +318,51 @@ class BlockAllocator:
         self._tokens[slot] = n_tokens_total
         return fresh
 
+    def extend_window(self, slot: int, n_tokens_total: int) -> tuple:
+        """Slide ``slot``'s window ring forward to cover position
+        ``n_tokens_total - 1``: claim blocks up to its logical block, and
+        free every block that has fallen fully behind that position minus
+        the window.  Returns ``(fresh, freed)`` physical block ids; either
+        non-empty means the published table row must be rebuilt."""
+        if slot not in self.window_tables:
+            raise AllocatorInvariantError(f"slot {slot} has no window ring")
+        bs, W = self.config.block_size, self.layout.window
+        ring = self.window_tables[slot]
+        p = n_tokens_total - 1
+        lo = max(0, p - W + 1) // bs
+        freed = [ring.pop(i) for i in sorted(ring) if i < lo]
+        self._free.extend(reversed(freed))
+        cur_hi = max(ring, default=lo - 1)
+        n_claim = max(0, p // bs - cur_hi)
+        if n_claim and slot not in self._reserve \
+                and n_claim > self.n_available():
+            # a reserving slot's ring headroom is counted in
+            # outstanding_blocks(); an unreserved one must not eat into
+            # other slots' reservations
+            raise CacheExhausted(
+                f"slot {slot}: window ring needs {n_claim} more blocks, "
+                f"{self.n_available()} available")
+        fresh = self._claim(n_claim, f"slot {slot} window ring")
+        for i, b in enumerate(fresh):
+            ring[cur_hi + 1 + i] = b
+        return fresh, freed
+
     def free_slot(self, slot: int) -> int:
-        """Return every block of ``slot`` to the free list (in table order,
-        so the next claims reuse them first) and release its state slot;
-        returns how many blocks."""
+        """Return every block of ``slot``, its global table's and its
+        ring's, to the free list (in table order, so the next claims reuse
+        them first) and release its state slot; returns how many
+        blocks."""
         if slot not in self.tables:
             raise AllocatorInvariantError(f"slot {slot} has no allocation")
         blocks = self.tables.pop(slot)
         self._tokens.pop(slot)
         self._reserve.pop(slot, None)
         self._free.extend(reversed(blocks))
+        ring = self.window_tables.pop(slot, None)
+        if ring:
+            ring_blocks = [ring[i] for i in sorted(ring, reverse=True)]
+            self._free.extend(ring_blocks)
+            blocks = blocks + ring_blocks
         self._state_slots.discard(slot)
         return len(blocks)
 
@@ -296,13 +375,31 @@ class BlockAllocator:
                 f"table of {len(table)} blocks exceeds width {width}")
         return table + [self.config.null_block] * (width - len(table))
 
+    def padded_window_table(self, slot: int, width: int) -> list[int]:
+        """``slot``'s window ring as a full-width logical table: entry i is
+        the physical block of logical block i, or the null block when i is
+        behind the window (freed) or not yet written."""
+        ring = self.window_tables[slot]
+        if ring and max(ring) >= width:
+            raise ValueError(
+                f"window ring reaches block {max(ring)}, width {width}")
+        null = self.config.null_block
+        return [ring.get(i, null) for i in range(width)]
+
+    def window_blocks_in_use(self) -> int:
+        return sum(len(ring) for ring in self.window_tables.values())
+
     # -- invariants --------------------------------------------------------------
     def check(self) -> None:
-        """Every block is free or in exactly one table, each table covers
-        exactly its slot's tokens, reservations fit the free pool, and with
-        a recurrent group every live slot holds exactly one state slot."""
+        """Every block is free or in exactly one table or ring, each table
+        covers exactly its slot's tokens, every ring belongs to a live slot
+        and with a window group every live slot has one, reservations fit
+        the free pool, and with a recurrent group every live slot holds
+        exactly one state slot."""
         owned = [b for t in self.tables.values() for b in t]
-        everything = self._free + owned
+        window = [b for ring in self.window_tables.values()
+                  for b in ring.values()]
+        everything = self._free + owned + window
         if len(set(everything)) != len(everything):
             raise AllocatorInvariantError("a block is owned twice")
         if sorted(everything) != list(range(self.config.n_blocks)):
@@ -310,10 +407,19 @@ class BlockAllocator:
                 f"{self.config.n_blocks - len(everything)} blocks "
                 "unaccounted for")
         for slot, table in self.tables.items():
-            if len(table) != self.blocks_needed(self._tokens[slot]):
+            if len(table) != self._global_blocks(self._tokens[slot]):
                 raise AllocatorInvariantError(
                     f"slot {slot}: {len(table)} blocks for "
                     f"{self._tokens[slot]} tokens")
+        if set(self.window_tables) - set(self.tables):
+            raise AllocatorInvariantError(
+                "window rings held by no live slot: "
+                f"{sorted(set(self.window_tables) - set(self.tables))}")
+        if self.layout.window and set(self.window_tables) != \
+                set(self.tables):
+            raise AllocatorInvariantError(
+                "live slots without a window ring: "
+                f"{sorted(set(self.tables) - set(self.window_tables))}")
         if set(self._reserve) - set(self.tables):
             raise AllocatorInvariantError("reservation without a table")
         if self.outstanding_blocks() > self.n_free:
@@ -335,10 +441,14 @@ class BlockAllocator:
                 f"{self.layout.state_slots}")
 
     # -- physical store ----------------------------------------------------------
-    def attach_store(self, store: PagedKVStore) -> None:
+    def attach_store(self, store: PagedKVStore,
+                     group: str = "global") -> None:
+        """Bind a physical store whose blocks the ``group`` ("global" or
+        "window") tables address."""
         if store.config != self.config:
             raise ValueError("store geometry does not match allocator config")
         self.stores.append(store)
+        self.store_groups.append(group)
 
     def resident_bytes(self) -> int:
         """Device bytes pinned by allocated blocks across the stores and by
@@ -346,13 +456,20 @@ class BlockAllocator:
         return sum(self.resident_bytes_by_group().values())
 
     def resident_bytes_by_group(self) -> dict[str, int]:
-        """Residency split by cache group: ``"global"`` is blocks in use
-        times the stores' bytes per block, ``"recurrent"`` state slots in
-        use times the layout's bytes per slot."""
+        """Residency split by cache group, as the reference splits it:
+        ``"global"`` and ``"window"`` are each group's blocks in use times
+        the bytes per block of that group's stores (a group appears when it
+        has stores or blocks in use), ``"recurrent"`` state slots in use
+        times the layout's bytes per slot."""
         out: dict[str, int] = {}
-        block_bytes = sum(s.block_bytes for s in self.stores)
-        if block_bytes:
-            out["global"] = self.n_in_use * block_bytes
+        in_use = {"global": sum(len(t) for t in self.tables.values()),
+                  "window": self.window_blocks_in_use()}
+        for group, n in in_use.items():
+            block_bytes = sum(s.block_bytes for s, g in
+                              zip(self.stores, self.store_groups)
+                              if g == group)
+            if block_bytes or n:
+                out[group] = n * block_bytes
         if self.layout.state_slots:
             out["recurrent"] = len(self._state_slots) * \
                 self.layout.state_bytes_per_slot

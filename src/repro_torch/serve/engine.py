@@ -5,11 +5,14 @@ A port of the ``paged=True``, whole-prompt-prefill, greedy subset of
 ``repro.serve.engine``.  ``ContinuousEngine`` admits queued requests into
 free decode lanes mid-stream (``SlotScheduler`` + ``BlockAllocator``),
 prefills each prompt whole into a dense single-request cache, scatters
-that cache into the shared page pools and, for recurrent (SSD) layers,
-into the lane's state slabs (``lm.insert_paged_prompt``), and then decodes
-all lanes in one batched step that writes each lane's row through its
-block table and attends with the paged kernel, and advances the state
-slabs of the active lanes only (``lm.freeze_state_lanes``).  Each lane
+that cache into the shared page pools (global layers through the lane's
+block table, sliding-window layers through its window block ring) and,
+for recurrent (SSD, RG-LRU) layers, into the lane's state slabs
+(``lm.insert_paged_prompt``), and then decodes all lanes in one batched
+step that writes each lane's row through its table and attends with the
+paged kernel, and advances the state slabs of the active lanes only
+(``lm.freeze_state_lanes``).  Before each step a window ring slides
+forward and frees the blocks that fell fully behind the window.  Each lane
 computes exactly the B=1 decode path, so its tokens match
 ``Engine.generate`` on that request alone: the gathered paged view has
 exactly ``kv_len`` rows (``kv_len % block_size == 0`` is enforced when the
@@ -62,14 +65,15 @@ def make_serve_step(cfg: ModelConfig, impl: str = "kernel"):
 
 
 def make_paged_decode_step(cfg: ModelConfig, impl: str = "kernel"):
-    """decode(params, caches, toks [B], pos [B], tables {"global": [B, W]}
-    (empty without attention layers), active [B] bool) -> (next_toks [B],
-    caches).  One batched step over every lane; each lane writes its row
-    through its table (inactive lanes hold null rows, so their writes land
-    in the scratch page), and ``active`` confines the recurrent state
-    update to the lanes actually decoding: every recurrent layer's new
-    state goes through ``lm.freeze_state_lanes`` as soon as it is computed.
-    The step waits on nothing from the device."""
+    """decode(params, caches, toks [B], pos [B], tables {"global": [B, W],
+    "window": [B, W]} (each present when the model has such layers),
+    active [B] bool) -> (next_toks [B], caches).  One batched step over
+    every lane; each lane writes its row through its table (inactive lanes
+    hold null rows, so their writes land in the scratch page), and
+    ``active`` confines the recurrent state update to the lanes actually
+    decoding: every recurrent layer's new state goes through
+    ``lm.freeze_state_lanes`` as soon as it is computed.  The step waits
+    on nothing from the device."""
     def decode_step(params, caches, toks, pos, tables, active):
         def freeze(key, new):
             lm.freeze_state_lanes(cfg, caches, {key: new}, active)
@@ -78,6 +82,7 @@ def make_paged_decode_step(cfg: ModelConfig, impl: str = "kernel"):
                                     positions=pos, cache=caches,
                                     mode="decode", impl=impl,
                                     paged_tables=tables.get("global"),
+                                    window_tables=tables.get("window"),
                                     state_sink=freeze)
         return _greedy(logits, cfg), caches
     return decode_step
@@ -130,10 +135,11 @@ class ContinuousEngine:
 
     Requests are ``submit()``-ed with an arrival step, then ``run()``
     drives the loop: admit arrived requests into free slots (worst-case
-    block reservation, and a state slot for a recurrent model), prefill
-    each whole and insert it into the page pools and state slabs, run one
-    batched decode step over all lanes, retire finished slots and reclaim
-    their blocks and state slots.  Only ``paged=True`` is ported;
+    block reservation, a window ring for a model with sliding-window
+    layers, and a state slot for a recurrent model), prefill each whole
+    and insert it into the page pools and state slabs, run one batched
+    decode step over all lanes, retire finished slots and reclaim their
+    blocks, rings and state slots.  Only ``paged=True`` is ported;
     bucketed or chunked prefill, the prefix cache, speculation, sampling
     and dense lanes raise ``NotImplementedError``.
     """
@@ -166,20 +172,26 @@ class ContinuousEngine:
         _check_servable(self.cfg)
         groups = lm.serve_groups(self.cfg)
         self._has_global = bool(groups["paged"])
+        self._has_window = bool(groups["window"])
         self._has_state = bool(groups["recurrent"])
+        has_blocks = self._has_global or self._has_window
         if self.kv_len <= 0:
             raise ValueError("kv_len must be positive")
-        if self._has_global and self.kv_len % self.block_size:
+        if has_blocks and self.kv_len % self.block_size:
             raise ValueError(
                 f"paged mode needs kv_len ({self.kv_len}) divisible by "
                 f"block_size ({self.block_size}) so the gathered KV view "
                 "matches the dense oracle's shape (token identity)")
+        # a published table (global or window ring) spans the full context
+        self._max_blocks = (self.kv_len // self.block_size if has_blocks
+                            else 0)
         # per-slot block budget: a global table grows to the full context;
-        # recurrent layers hold state slots, no blocks
-        self._max_blocks = (self.kv_len // self.block_size
-                            if self._has_global else 0)
+        # a window ring is capped at O(window) blocks; recurrent layers
+        # hold state slots, no blocks
+        per_slot = (self._max_blocks if self._has_global else 0) + \
+            self._window_cap_blocks()
         cache_cfg = CacheConfig(block_size=self.block_size,
-                                n_blocks=self.n_slots * self._max_blocks)
+                                n_blocks=self.n_slots * per_slot)
         self.allocator = BlockAllocator(cache_cfg)
         self.scheduler = SlotScheduler(self.n_slots, self.allocator,
                                        self.kv_len)
@@ -190,11 +202,15 @@ class ContinuousEngine:
         self._caches = lm.init_paged_caches(
             self.cfg, self.n_slots, cache_cfg.n_blocks + 1, self.block_size,
             self.dtype, self.device)
-        for _, keys, leaf in lm.paged_cache_leaves(self.cfg, self._caches):
+        for group, keys, leaf in lm.paged_cache_leaves(self.cfg,
+                                                       self._caches):
             self.allocator.attach_store(PagedKVStore.from_pools(
-                cache_cfg, leaf[keys[0]], leaf[keys[1]]))
+                cache_cfg, leaf[keys[0]], leaf[keys[1]]), group=group)
         self.allocator.set_layout(CacheLayout(
             has_global=self._has_global,
+            window=(min(self.kv_len, self.cfg.window_size)
+                    if self._has_window else 0),
+            window_cap_blocks=self._window_cap_blocks(),
             state_slots=self.n_slots if self._has_state else 0,
             state_bytes_per_slot=lm.state_bytes_per_slot(self.cfg,
                                                          self._caches)))
@@ -202,8 +218,10 @@ class ContinuousEngine:
                                     cache_cfg.null_block, dtype=torch.int32,
                                     device=self.device)
         # one published [n_slots, W] table per block group
-        self._tables = ({"global": self._null_row.repeat(self.n_slots, 1)}
-                        if self._has_global else {})
+        self._tables = {group: self._null_row.repeat(self.n_slots, 1)
+                        for group, has in (("global", self._has_global),
+                                           ("window", self._has_window))
+                        if has}
         # lanes holding a decoding request, kept on the device so the
         # decode step never reads it back
         self._active = torch.zeros(self.n_slots, dtype=torch.bool,
@@ -245,16 +263,29 @@ class ContinuousEngine:
                               self.device)
         return self._prefill(self.params, cache, prompt[None])
 
-    def _refresh_row(self, slot: int) -> torch.Tensor:
-        row = self.allocator.padded_table(slot, self._max_blocks)
+    def _window_cap_blocks(self) -> int:
+        """Most blocks one lane's window ring can pin at once: the blocks
+        covering the window span plus one of block-alignment slack, never
+        more than a full-context table."""
+        if not self._has_window:
+            return 0
+        wc = min(self.kv_len, self.cfg.window_size)
+        return min(self._max_blocks, -(-wc // self.block_size) + 1)
+
+    def _refresh_row(self, slot: int, group: str) -> torch.Tensor:
+        """``slot``'s table row for ``group`` from the allocator's tables."""
+        if group == "global":
+            row = self.allocator.padded_table(slot, self._max_blocks)
+        else:
+            row = self.allocator.padded_window_table(slot, self._max_blocks)
         return torch.tensor(row, dtype=torch.int32, device=self.device)
 
     def _admit_one(self, act: ActiveSlot) -> None:
         slot = act.slot
         prompt = torch.tensor(act.request.prompt, dtype=torch.int32,
                               device=self.device)
-        rows = ({"global": self._refresh_row(slot)} if self._has_global
-                else {})
+        rows = {group: self._refresh_row(slot, group)
+                for group in self._tables}
         tok, cache = self._full_prefill(prompt)
         # whole-prompt admission overwrites the lane's state slabs, so a
         # reused lane needs no reset
@@ -283,11 +314,19 @@ class ContinuousEngine:
 
     def _grow_tables(self, decoding: list) -> None:
         """Claim the block backing each lane's next write before the
-        decode step runs (the write needs a physical destination; a
-        model without attention layers never claims one)."""
+        decode step runs (the write needs a physical destination; a model
+        without attention layers never claims one).  Window rings also
+        free every block that has fallen fully behind ``pos - window``."""
         for slot in decoding:
-            if self.allocator.extend(slot, self._host_pos[slot] + 1):
-                self._tables["global"][slot] = self._refresh_row(slot)
+            n_res = self._host_pos[slot] + 1
+            if self._has_global and self.allocator.extend(slot, n_res):
+                self._tables["global"][slot] = self._refresh_row(slot,
+                                                                 "global")
+            if self._has_window:
+                fresh, freed = self.allocator.extend_window(slot, n_res)
+                if fresh or freed:
+                    self._tables["window"][slot] = self._refresh_row(
+                        slot, "window")
 
     @torch.no_grad()
     def run(self, max_steps: Optional[int] = None) -> dict:

@@ -3,7 +3,10 @@
 Same weights and inputs (numpy, seeded) through the JAX function and its
 port, at the reduced TinyLlama size, in f32, atol 1e-5.  Covers RMSNorm,
 RoPE, attention layers with no cache, a prefill cache, dense decode and
-paged decode, the gated FFN, and the in-place paged write.
+paged decode, the gated FFN, and the in-place paged write; and at the
+reduced recurrentgemma-2b size (MQA, hd 16, window 32) the sliding-window
+attention layer with no cache, a ring-filled prefill cache, dense decode
+and paged decode through window ring tables.
 """
 
 import jax
@@ -22,16 +25,18 @@ ATOL = 1e-5
 
 CFG = configs.get("tinyllama-1.1b").reduced()
 JCFG = jconfigs.get("tinyllama-1.1b").reduced()
+RG_CFG = configs.get("recurrentgemma-2b").reduced()
+RG_JCFG = jconfigs.get("recurrentgemma-2b").reduced()
 
 
 def _both(a):
     return jnp.asarray(a), torch.from_numpy(np.array(a))
 
 
-def _attn_params(seed):
-    p = jblocks.init_attention(jax.random.PRNGKey(seed), JCFG, jnp.float32)
+def _attn_params(seed, jcfg=JCFG):
+    p = jblocks.init_attention(jax.random.PRNGKey(seed), jcfg, jnp.float32)
     rng = np.random.default_rng(seed)
-    p["ln"] = jnp.asarray(rng.standard_normal(JCFG.d_model) * 0.1,
+    p["ln"] = jnp.asarray(rng.standard_normal(jcfg.d_model) * 0.1,
                           jnp.float32)
     return p, {k: torch.from_numpy(np.array(v)) for k, v in p.items()}
 
@@ -159,7 +164,97 @@ def test_ffn_layer_matches_jax(act):
 
 
 def test_local_layers_are_not_ported():
+    """Sliding-window layers run dense prefill, dense decode and the paged
+    decode step (tests below); their multi-row paged path, which chunked
+    prefill needs, is not ported and raises."""
     _, tp = _attn_params(7)
+    pool = torch.zeros(3, 4, CFG.n_kv_heads, CFG.head_dim)
     with pytest.raises(NotImplementedError):
-        blocks.attn_layer(CFG, tp, torch.zeros(1, 2, 64), local=True,
-                          positions=torch.arange(2, dtype=torch.int32))
+        blocks.attn_layer(CFG.replace(window_size=8), tp,
+                          torch.zeros(1, 2, 64), local=True,
+                          positions=torch.arange(2, dtype=torch.int32),
+                          cache={"k_pages": pool, "v_pages": pool.clone()},
+                          paged_tables=torch.zeros((1, 2),
+                                                   dtype=torch.int32))
+
+
+@pytest.mark.parametrize("S", [20, 45])
+def test_local_attn_layer_without_cache_matches_jax(S):
+    jp, tp = _attn_params(8, RG_JCFG)
+    rng = np.random.default_rng(8)
+    jx, tx = _both(rng.standard_normal((2, S, 64)).astype(np.float32))
+    jpos, tpos = _both(np.arange(S, dtype=np.int32))
+    jout, _ = jblocks.attn_layer(RG_JCFG, jp, jx, local=True, positions=jpos)
+    for impl in ("kernel", "plain"):
+        tout, _ = blocks.attn_layer(RG_CFG, tp, tx, local=True,
+                                    positions=tpos, impl=impl)
+        _close(tout, jout)
+
+
+@pytest.mark.parametrize("S", [12, 40])
+def test_local_attn_layer_prefill_then_dense_decode_match_jax(S):
+    """A window cache holds min(kv_len, window) = 32 rows: a 12-row prompt
+    fills slots 0.., a 40-row one its last 32 rows at position % 32; the
+    decode steps then write at position % 32."""
+    jp, tp = _attn_params(9, RG_JCFG)
+    rng = np.random.default_rng(9)
+    kv_len = 64
+    jx, tx = _both(rng.standard_normal((1, S, 64)).astype(np.float32))
+    jpos, tpos = _both(np.arange(S, dtype=np.int32))
+    jc = jblocks.init_attn_cache(RG_JCFG, 1, kv_len, True, jnp.float32)
+    tc = blocks.init_attn_cache(RG_CFG, 1, kv_len, torch.float32, "cpu",
+                                local=True)
+    assert tc["k"].shape == jc["k"].shape == (1, 32, 1, 16)
+    jout, jc = jblocks.attn_layer(RG_JCFG, jp, jx, local=True,
+                                  positions=jpos, cache=jc)
+    for impl in ("kernel", "plain"):
+        out, _ = blocks.attn_layer(RG_CFG, tp, tx, local=True,
+                                   positions=tpos, impl=impl,
+                                   cache=blocks.init_attn_cache(
+                                       RG_CFG, 1, kv_len, torch.float32,
+                                       "cpu", local=True))
+        _close(out, jout)
+    tout, tc = blocks.attn_layer(RG_CFG, tp, tx, local=True, positions=tpos,
+                                 cache=tc)
+    _close(tout, jout)
+    for t in range(3):
+        jy, ty = _both(rng.standard_normal((1, 1, 64)).astype(np.float32))
+        jd, td = _both(np.asarray(S + t, np.int32))
+        jout, jc = jblocks.attn_layer(RG_JCFG, jp, jy, local=True,
+                                      positions=jd, cache=jc)
+        tout, tc = blocks.attn_layer(RG_CFG, tp, ty, local=True,
+                                     positions=td, cache=tc)
+        _close(tout, jout)
+        for key in ("k", "v"):
+            _close(tc[key], jc[key])
+        assert np.array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+
+
+def test_local_attn_layer_paged_decode_through_ring_matches_jax():
+    """Window ring tables: entries behind the window are the null page
+    (lane 0 at position 50 keeps blocks 1..3 of 16 rows; lane 1 at 20
+    keeps 0..1), lane 2 is retired (all null)."""
+    jp, tp = _attn_params(10, RG_JCFG)
+    rng = np.random.default_rng(10)
+    B, bs, null = 3, 16, 9
+    pools = rng.standard_normal((2, null + 1, bs, RG_CFG.n_kv_heads,
+                                 RG_CFG.head_dim)).astype(np.float32)
+    tables = np.array([[null, 4, 0, 7, null, null],
+                       [2, 5, null, null, null, null],
+                       [null] * 6], np.int32)
+    pos = np.array([50, 20, 3], np.int32)
+    jx, tx = _both(rng.standard_normal((B, 1, 64)).astype(np.float32))
+    jcache = {"k_pages": jnp.asarray(pools[0]),
+              "v_pages": jnp.asarray(pools[1])}
+    jout, jcache = jblocks.attn_layer(
+        RG_JCFG, jp, jx, local=True, positions=jnp.asarray(pos),
+        cache=jcache, paged_tables=jnp.asarray(tables))
+    for impl in ("kernel", "plain"):
+        tcache = {"k_pages": torch.from_numpy(pools[0].copy()),
+                  "v_pages": torch.from_numpy(pools[1].copy())}
+        tout, tcache = blocks.attn_layer(
+            RG_CFG, tp, tx, local=True, positions=torch.from_numpy(pos),
+            cache=tcache, impl=impl, paged_tables=torch.from_numpy(tables))
+        _close(tout[:2], jout[:2])                # active lanes
+        for key in ("k_pages", "v_pages"):        # scratch page aside
+            _close(tcache[key][:-1], jcache[key][:-1])

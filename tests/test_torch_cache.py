@@ -1,11 +1,13 @@
 """The port's copied allocator, store, scheduler and telemetry against the
 reference's: randomized churn with ``check()`` after every operation,
 identical block ids to ``repro.serve.cache.BlockAllocator`` for the same
-operations (global-only, global with state slots, and state slots alone),
-typed failures, state-slot accounting (admission gated by free slots,
-release on finish, ``check()`` catching a leaked slot, recurrent
-residency), the torch ``PagedKVStore``, and FCFS admission with
-worst-case reservations."""
+operations (global-only, global with state slots, and state slots alone;
+and window rings, alone, with state slots as recurrentgemma lays them out,
+and beside a global table), typed failures, state-slot accounting
+(admission gated by free slots, release on finish, ``check()`` catching a
+leaked slot, recurrent residency), ``check()`` catching a leaked window
+ring, the torch ``PagedKVStore``, and FCFS admission with worst-case
+reservations."""
 
 import numpy as np
 import pytest
@@ -217,3 +219,160 @@ def test_telemetry_aggregates():
                     resident_by_group={"recurrent": 64})
     assert tel.peak_resident_bytes_by_group() == {"recurrent": 128}
     assert tel.steps[-1].resident_by_group == {"recurrent": 64}
+
+
+WINDOW_LAYOUTS = {
+    "window": {"has_global": False, "window": 10, "window_cap_blocks": 4},
+    "window+state": {"has_global": False, "window": 8,
+                     "window_cap_blocks": 3, "state_slots": 4,
+                     "state_bytes_per_slot": 96},
+    "global+window": {"window": 8, "window_cap_blocks": 3},
+}
+
+
+def _stores(alloc, cfg, groups):
+    """One small torch store per group, so residency has bytes."""
+    for i, group in enumerate(groups):
+        alloc.attach_store(PagedKVStore(cfg, n_layers=1 + i, n_kv_heads=1,
+                                        head_dim=16, device="cpu"),
+                           group=group)
+
+
+def _outcome(fn, *args):
+    """("ok", result) or ("raised", exception class name)."""
+    try:
+        return "ok", fn(*args)
+    except (AssertionError, MemoryError) as exc:
+        return "raised", type(exc).__name__
+
+
+def _check_message(alloc):
+    """``alloc.check()``'s complaint, or None (both packages' invariant
+    errors are ``AssertionError``s)."""
+    try:
+        alloc.check()
+    except AssertionError as exc:
+        return str(exc)
+    return None
+
+
+@pytest.mark.parametrize("layout", sorted(WINDOW_LAYOUTS))
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_window_ring_churn_matches_reference(seed, layout):
+    """Admissions, decode growth (table extend and ring slide, as the
+    engine calls them) and retirements: the same block ids, rings, freed
+    blocks, availability and residency by group as the reference
+    allocator, with ``check()`` after every operation.  Both checks must
+    agree, and so must every failed growth; the one complaint allowed is
+    the reference's own: with a global table beside the ring, a pool
+    smaller than the engine sizes it, and a reservation shorter than the
+    ring's cap, the reservation counts the whole cap while admission priced
+    only the blocks the request can use, so "reservations outstanding" can
+    exceed the free blocks, and growth inside a reservation can then meet
+    ``CacheExhausted`` (ROADMAP F5).  The port copies that arithmetic so
+    that block ids match."""
+    rng = np.random.default_rng(seed)
+    spec = WINDOW_LAYOUTS[layout]
+    cfg = CacheConfig(block_size=4, n_blocks=20)
+    port = BlockAllocator(cfg)
+    ref = jcache.BlockAllocator(jcache.CacheConfig(block_size=4,
+                                                   n_blocks=20))
+    groups = (["global"] if spec.get("has_global", True) else []) + \
+        ["window"]
+    _stores(port, cfg, groups)
+    for i, group in enumerate(groups):
+        ref.attach_store(jcache.PagedKVStore(
+            jcache.CacheConfig(block_size=4, n_blocks=20), n_layers=1 + i,
+            n_kv_heads=1, head_dim=16), group=group)
+    port.set_layout(CacheLayout(**spec))
+    ref.set_layout(jcache.CacheLayout(**spec))
+    has_global = spec.get("has_global", True)
+    live: dict[int, list] = {}                  # slot -> [tokens, reserve]
+    for _ in range(300):
+        op = rng.integers(3)
+        slot = int(rng.integers(6))
+        if op == 0 and slot not in live:
+            n = int(rng.integers(1, 30))
+            reserve = n + int(rng.integers(0, 20))
+            ok = port.can_allocate(n, reserve)
+            assert ok == ref.can_allocate(n, reserve)
+            if ok:
+                assert port.allocate(slot, n, reserve_tokens=reserve) == \
+                    ref.allocate(slot, n, reserve_tokens=reserve)
+                live[slot] = [n, reserve]
+        elif op == 1 and slot in live:
+            tokens, reserve = live[slot]
+            grow = min(reserve, tokens + int(rng.integers(0, 6)))
+            calls = (["extend"] if has_global else []) + ["extend_window"]
+            for i, name in enumerate(calls):
+                got = _outcome(getattr(port, name), slot, grow)
+                assert got == _outcome(getattr(ref, name), slot, grow)
+                if got[0] == "raised":
+                    assert got[1] == "CacheExhausted" and \
+                        layout == "global+window", got
+                    break
+                if i == 0:                      # the token count moved
+                    live[slot][0] = grow
+        elif op == 2 and slot in live:
+            assert port.free_slot(slot) == ref.free_slot(slot)
+            del live[slot]
+        complaint = _check_message(port)
+        assert complaint == _check_message(ref) or \
+            complaint.split(" (")[0] == _check_message(ref).split(" (")[0]
+        assert complaint is None or (
+            complaint.startswith("reservations outstanding")
+            and layout == "global+window"), complaint
+        assert port.tables == ref.tables
+        assert port.window_tables == ref.window_tables
+        assert port.n_free == ref.n_free
+        assert port.n_available() == ref.n_available()
+        assert port.resident_bytes_by_group() == \
+            ref.resident_bytes_by_group()
+        for s in live:
+            assert port.padded_window_table(s, 16) == \
+                ref.padded_window_table(s, 16)
+    for s in list(live):
+        port.free_slot(s)
+    port.check()
+    assert port.n_free == cfg.n_blocks and not port.window_tables
+    assert port.window_blocks_in_use() == 0
+
+
+def test_window_ring_slides_and_frees_behind_the_window():
+    alloc = BlockAllocator(CacheConfig(block_size=4, n_blocks=8))
+    alloc.set_layout(CacheLayout(has_global=False, window=8,
+                                 window_cap_blocks=3))
+    assert alloc.blocks_needed(30) == 3           # capped ring
+    assert alloc.allocate(0, 11, reserve_tokens=20) == []
+    assert sorted(alloc.window_tables[0]) == [0, 1, 2]   # covers 3..10
+    fresh, freed = alloc.extend_window(0, 13)      # position 12: block 3
+    assert len(fresh) == 1 and len(freed) == 1     # block 0 behind 5
+    assert sorted(alloc.window_tables[0]) == [1, 2, 3]
+    assert alloc.padded_window_table(0, 5) == [8] + \
+        [alloc.window_tables[0][i] for i in (1, 2, 3)] + [8]
+    assert alloc.extend_window(0, 14) == ([], [])
+    alloc.check()
+    assert alloc.free_slot(0) == 3
+    alloc.check()
+    assert alloc.n_free == 8
+
+
+def test_check_catches_a_leaked_window_ring():
+    alloc = BlockAllocator(CacheConfig(block_size=4, n_blocks=8))
+    alloc.set_layout(CacheLayout(has_global=False, window=8,
+                                 window_cap_blocks=3, state_slots=2,
+                                 state_bytes_per_slot=8))
+    alloc.allocate(0, 9)
+    alloc.check()
+    leaked = alloc.window_tables.pop(0)             # ring lost, blocks not
+    with pytest.raises(AllocatorInvariantError, match="unaccounted|ring"):
+        alloc.check()
+    alloc.window_tables[0] = leaked
+    alloc.window_tables[3] = {0: alloc._free.pop()}  # ring of no request
+    with pytest.raises(AllocatorInvariantError, match="window rings"):
+        alloc.check()
+    alloc._free.append(alloc.window_tables.pop(3)[0])
+    alloc.check()
+    alloc.free_slot(0)
+    alloc.check()
+    assert alloc.n_free == 8

@@ -1,5 +1,6 @@
 """The port's model and engines against the JAX package, end to end, on the
-CPU at the reduced TinyLlama and mamba2-370m sizes in f32.
+CPU at the reduced TinyLlama, mamba2-370m and recurrentgemma-2b sizes in
+f32.
 
 Same weights (``repro.models.lm.init_params`` output carried across by
 ``repro_torch.convert``) and the same prompts through both packages:
@@ -8,7 +9,9 @@ identical to the JAX ``Engine`` and ``ContinuousEngine(paged=True)``; the
 port's ``ContinuousEngine(paged=True)`` token-identical to its own
 ``Engine`` per request (for mamba2 with more requests than lanes, so
 lanes and their state slabs are reused, and with retired lanes whose slabs
-the batched step must leave alone).  Also the port's config copy,
+the batched step must leave alone; for recurrentgemma with prompts longer
+than the window, so that window rings free blocks, and with the same
+residency by cache group as the JAX engine).  Also the port's config copy,
 parameter init and conversion, its refusals, and its device rule.
 """
 
@@ -33,7 +36,9 @@ from repro_torch.serve import ContinuousEngine, Engine, make_paged_decode_step
 torch.set_num_threads(2)
 ARCH = "tinyllama-1.1b"
 SSM_ARCH = "mamba2-370m"
+RG_ARCH = "recurrentgemma-2b"
 KV_LEN = 48
+RG_KV_LEN = 96
 
 
 def _pair(arch=ARCH, **changes):
@@ -53,6 +58,11 @@ def models():
 @pytest.fixture(scope="module")
 def ssm_models():
     return _pair(SSM_ARCH)
+
+
+@pytest.fixture(scope="module")
+def rg_models():
+    return _pair(RG_ARCH)
 
 
 def _prompts(n, lens, vocab, seed=0):
@@ -90,8 +100,8 @@ def test_config_copy_matches_reference():
 def test_serve_groups_match_reference():
     """The per-layer cache-group report over every registry arch (ported
     configs built from the reference's fields), and the port's refusal of
-    every arch with a layer kind other than global attention with a dense
-    FFN or SSD with no FFN."""
+    every arch with a layer kind other than global or sliding-window
+    attention or RG-LRU with a dense FFN, or SSD with no FFN."""
     from repro.models.config import ModelConfig as JModelConfig
     from repro_torch.models.config import ModelConfig
     for name in jconfigs.available():
@@ -101,8 +111,8 @@ def test_serve_groups_match_reference():
         ref = jlm.serve_groups(jcfg)
         assert lm.serve_groups(cfg) == {k: ref[k] for k in
                                         ("paged", "window", "recurrent")}
-        plain = {s.key for s in cfg.layers()} <= {"global+dense",
-                                                  "ssd+none"} and \
+        plain = {s.key for s in cfg.layers()} <= {
+            "global+dense", "local+dense", "ssd+none", "rglru+dense"} and \
             not cfg.n_enc_layers and not cfg.frontend
         assert (lm.unsupported_reason(cfg) is None) == plain, name
     assert lm.unsupported_reason(configs.get(SSM_ARCH)) is None
@@ -225,9 +235,9 @@ def test_engines_refuse_what_is_not_ported(models):
     with pytest.raises(ValueError, match="divisible"):
         ContinuousEngine(cfg, tp, paged=True, kv_len=40, block_size=16,
                          device="cpu")
-    local = cfg.replace(layer_cycle=(("local", "dense"),), window_size=8)
+    mla = cfg.replace(layer_cycle=(("mla", "dense"),))
     with pytest.raises(NotImplementedError, match="not ported"):
-        Engine(local, tp, **kw)
+        Engine(mla, tp, **kw)
 
 
 def test_entry_points_need_a_card_unless_told_cpu(models, monkeypatch):
@@ -347,4 +357,76 @@ def test_ssm_launcher_serves_on_cpu(capsys):
     launch_serve.main(["--arch", SSM_ARCH, "--reduced", "--device", "cpu",
                        "--batch", "2", "--prompt-len", "5", "--max-new",
                        "3", "--kv-len", "16"])
+    assert "generated (2, 3)" in capsys.readouterr().out
+
+
+def test_rg_engines_match_jax_engines(rg_models):
+    """recurrentgemma through both packages: the port's Engine against the
+    JAX Engine on prompts longer than the window of 32, and staggered
+    requests, more than lanes, through the port's paged engine against the
+    JAX paged engine and the port's B=1 Engine.  Window rings slide and
+    free blocks; the residency by cache group matches the JAX engine's
+    step for step."""
+    jcfg, cfg, jp, tp = rg_models
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, cfg.vocab_size, (2, 41)).astype(np.int32)
+    exp = np.asarray(JEngine(jcfg, jp, kv_len=RG_KV_LEN).generate(
+        jnp.asarray(toks), 9))
+    for impl in ("kernel", "plain"):
+        got = Engine(cfg, tp, kv_len=RG_KV_LEN, impl=impl,
+                     device="cpu").generate(torch.from_numpy(toks), 9)
+        assert np.array_equal(got.numpy(), exp)
+
+    prompts = _prompts(6, [40, 50, 9, 70, 35, 12], cfg.vocab_size, seed=8)
+    max_new = [20, 12, 1, 10, 30, 6]
+    jeng = JContinuousEngine(jcfg, jp, kv_len=RG_KV_LEN, n_slots=2,
+                             paged=True)
+    eng = ContinuousEngine(cfg, tp, kv_len=RG_KV_LEN, n_slots=2, paged=True,
+                           device="cpu")
+    for e in (jeng, eng):
+        for i, (p, m) in enumerate(zip(prompts, max_new)):
+            e.submit(p, m, rid=i, arrival=2 * i)
+    freed = []
+    extend_window = eng.allocator.extend_window
+
+    def counting(slot, n_tokens_total):
+        fresh, gone = extend_window(slot, n_tokens_total)
+        freed.extend(gone)
+        return fresh, gone
+
+    eng.allocator.extend_window = counting
+    exp, got = jeng.run(), eng.run()
+    oracle = Engine(cfg, tp, kv_len=RG_KV_LEN, device="cpu")
+    for i, (p, m) in enumerate(zip(prompts, max_new)):
+        assert got[i] == exp[i]
+        assert got[i] == oracle.generate(torch.tensor([p]), m)[0].tolist()
+    assert freed, "no ring block fell behind the window"
+    assert eng.scheduler.max_slot_reuse() >= 3
+    eng.allocator.check()
+    assert eng.allocator.n_in_use == 0 and not eng.allocator.window_tables
+    assert eng.allocator.state_slots_in_use() == 0
+    # pool: 2 lanes x a ring cap of blocks_for(32) + 1 = 3 blocks
+    assert eng.allocator.n_blocks == jeng.allocator.n_blocks == 6
+    assert [s.resident_by_group for s in eng.telemetry.steps] == \
+        [s.resident_by_group for s in jeng.telemetry.steps]
+    peak = eng.telemetry.peak_resident_bytes_by_group()
+    assert set(peak) == {"window", "recurrent"}
+    block_bytes = sum(s.block_bytes for s in eng.allocator.stores)
+    assert peak["window"] <= 6 * block_bytes
+    assert peak["recurrent"] == 2 * lm.state_bytes_per_slot(cfg,
+                                                            eng._caches)
+
+
+def test_rg_launcher_serves_on_cpu(capsys):
+    launch_serve.main(["--arch", RG_ARCH, "--reduced", "--continuous",
+                       "--paged", "--device", "cpu", "--requests", "3",
+                       "--prompt-len", "40", "--max-new", "5",
+                       "--kv-len", "64"])
+    out = capsys.readouterr().out
+    assert "3 requests, 15 tokens" in out
+    assert "1 layer pools" in out and "window=" in out and \
+        "recurrent=" in out
+    launch_serve.main(["--arch", RG_ARCH, "--reduced", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "40", "--max-new",
+                       "3", "--kv-len", "64"])
     assert "generated (2, 3)" in capsys.readouterr().out
