@@ -15,14 +15,30 @@ exit code:
    context lengths up to 1024, prompt lengths that are not multiples of 16
    or 128, Sq=1, a window case and a softcap case; at recurrentgemma's
    hd 256 (H=10, KV=1) with window 2048 and window 32; paged 1e-5 (f32),
-   flash 2e-5 (f32), both 2e-2 (bf16).  SSD scan: the JAX test's four
+   flash 2e-5 (f32), both 2e-2 (bf16).  The paged kernel's split over the
+   context at both head shapes: contexts 1, 16, 17, 215, 2048 and 4096
+   with B 1 and 4, the wrapper's own n_split and forced 3 and 16, and a
+   window of 1000 under the longer contexts.  The flash kernel's 64-row
+   tiles at both head shapes, in both dtypes (bf16 runs its tensor-core
+   body, f32 its CUDA-core body): Sq = Skv of 1, 63, 64, 65, 131, 200,
+   1024 and 2048, causal and not, a window of 48 under a 200-row prompt, a
+   cached prefill (37 queries, 256 slots of which the last 106 are -1) and
+   a softcap.  SSD scan: the JAX test's four
    cases and full-width mamba2-370m shapes (nh 32, hd 64, ns 128) at S =
    17, 131, 200 and 512, each with and without an initial state, xs/B/C in
    f32 and bf16; 1e-4 on y and on the final state.  RG-LRU scan: the JAX
    test's four cases at 1e-4, its near-one decay case at 1e-3 with finite
    outputs, and full width (B 1, W 2560) at S = 17, 131 and 200, each with
    and without a random initial state, 1e-4 on hs and h_final.
-4. serve   — the three main paths, one after the other (each followed by
+4. kernel_timing — both attention kernels in bf16 at TinyLlama's and
+   recurrentgemma's head shapes, before any trace: per launch by CUDA
+   events around 50 back-to-back calls and on the profiler's device clock
+   (the serve trace's clock), beside the plain version, the bound and, for
+   flash, one ``scaled_dot_product_attention`` call on both clocks (a
+   yardstick; the port never calls it); at the trace's shapes (paged: its
+   first four lanes 16 tokens in; flash: its 131-row prompt) and a long
+   one each (paged: one lane 4096 rows in; flash: a 2048-row prompt).
+5. serve   — the three main paths, one after the other (each followed by
    its timing, so that one path's weights never count in the other's
    peak memory), each with every launch counter zeroed
    just before it and read just after, every request checked against
@@ -38,14 +54,12 @@ exit code:
    at full width 18 RG-LRU-scan and 8 flash launches per prefill, 8 paged
    launches per decode step, no SSD launch, and no block, ring or state
    slot left in use.
-5. timing  — each trace in bf16: tokens/s, mean decode step and prefill,
+6. timing  — each trace in bf16: tokens/s, mean decode step and prefill,
    peak memory, a repeat under ``torch.profiler`` (device time by kernel
    name, the device's busy share, and each port kernel's device time per
-   launch on the path), and each kernel's time per launch at its path's
-   shapes (CUDA events around 50 back-to-back calls) beside its plain
-   version, its bound and, for flash, one
-   ``scaled_dot_product_attention`` call (a yardstick; the port never
-   calls it).
+   launch on the path), and the scans' time per launch at their path's
+   shapes (CUDA events around 50 back-to-back calls) beside their plain
+   versions and bounds.
 
 Then the ``{"kernels": [...]}`` summary line (paged and flash attention at
 TinyLlama's hd 64, with recurrentgemma's hd 256 beside them), the card's
@@ -211,25 +225,44 @@ def phase_kernels(dev) -> dict:
     main_err = {"paged_attention": 0.0, "flash_attention": 0.0,
                 "ssd_scan": 0.0}
     paged_cases = [
-        # name, B, H, KV, hd, bs, max_blocks, lens, window, softcap
-        ("main", 4, 32, 4, 64, 16, 64, [1, 17, 500, 1024], 0, 0.0),
-        ("main_trace", 4, 32, 4, 64, 16, 32, [18, 201, 46, 132], 0, 0.0),
-        ("window", 4, 32, 4, 64, 16, 64, [3, 77, 600, 1024], 100, 0.0),
-        ("softcap", 4, 32, 4, 64, 16, 64, [9, 260, 511, 1000], 0, 30.0),
-        ("hd16", 3, 4, 2, 16, 16, 8, [1, 50, 128], 0, 0.0),
-        ("hd128", 2, 8, 1, 128, 16, 16, [33, 256], 0, 0.0),
+        # name, B, H, KV, hd, bs, max_blocks, lens, window, softcap, n_split
+        ("main", 4, 32, 4, 64, 16, 64, [1, 17, 500, 1024], 0, 0.0, None),
+        ("main_trace", 4, 32, 4, 64, 16, 32, [18, 201, 46, 132], 0, 0.0,
+         None),
+        ("window", 4, 32, 4, 64, 16, 64, [3, 77, 600, 1024], 100, 0.0, None),
+        ("softcap", 4, 32, 4, 64, 16, 64, [9, 260, 511, 1000], 0, 30.0,
+         None),
+        ("hd16", 3, 4, 2, 16, 16, 8, [1, 50, 128], 0, 0.0, None),
+        ("hd128", 2, 8, 1, 128, 16, 16, [33, 256], 0, 0.0, None),
         # recurrentgemma-2b: MQA, hd 256, its window and a short one
         ("rg_main_trace", 4, 10, 1, 256, 16, 32, [18, 201, 46, 132], 2048,
-         0.0),
-        ("rg_window32", 4, 10, 1, 256, 16, 32, [3, 77, 300, 512], 32, 0.0),
+         0.0, None),
+        ("rg_window32", 4, 10, 1, 256, 16, 32, [3, 77, 300, 512], 32, 0.0,
+         None),
     ]
+    # the split over the context: contexts of 1 row to 4096, one lane and
+    # four, the wrapper's own n_split and forced ones (single-row lanes
+    # leave most splits empty), and a window shorter than the context
+    for hd, H, KV in ((64, 32, 4), (256, 10, 1)):
+        for B, lens in ((1, [4096]), (1, [1]), (4, [1, 16, 17, 215]),
+                        (4, [2048, 4096, 17, 1])):
+            mb = -(-max(lens) // 16)
+            for n_split in (None, 3, 16):
+                paged_cases.append(
+                    (f"split_hd{hd}_b{B}_ctx{max(lens)}_n{n_split or 'auto'}",
+                     B, H, KV, hd, 16, mb, lens, 0, 0.0, n_split))
+        for n_split in (None, 5):
+            paged_cases.append(
+                (f"split_hd{hd}_window1000_n{n_split or 'auto'}", 4, H, KV,
+                 hd, 16, 256, [100, 2048, 4096, 17], 1000, 0.0, n_split))
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for name, B, H, KV, hd, bs, mb, lens, win, cap in paged_cases:
+        for (name, B, H, KV, hd, bs, mb, lens, win, cap,
+             n_split) in paged_cases:
             q, kp, vp, tbl, ln = paged_inputs(gen, dev, dtype, B, H, KV, hd,
                                               bs, mb, lens)
             got = pa_ops.paged_attention(q, kp, vp, tbl, ln, window=win,
-                                         logit_softcap=cap)
+                                         logit_softcap=cap, n_split=n_split)
             torch.cuda.synchronize()
             exp = pa_ref.reference(q[:, None], kp, vp, tbl, ln,
                                    q_positions=(ln - 1)[:, None],
@@ -257,16 +290,33 @@ def phase_kernels(dev) -> dict:
          None),
         ("rg_decode_sq1", 1, 1, 512, 10, 1, 256, True, 2048, 0.0, 300),
     ]
+    # the tensor-core tiling: query lengths around and far past the 64-row
+    # tile, causal and not, a window that cuts the prompt, a cached prefill
+    # (Sq < Skv, -1 slots past the cache's fill) and a softcap
+    for hd, H, KV in ((64, 32, 4), (256, 10, 1)):
+        for Sq in (1, 63, 64, 65, 131, 200, 1024, 2048):
+            for causal in (True, False):
+                flash_cases.append(
+                    (f"tile_sq{Sq}_hd{hd}_{'causal' if causal else 'full'}",
+                     1, Sq, Sq, H, KV, hd, causal, 0, 0.0, None))
+        flash_cases += [
+            (f"tile_window48_hd{hd}", 1, 200, 200, H, KV, hd, True, 48, 0.0,
+             None),
+            (f"tile_cached_hd{hd}", 2, 37, 256, H, KV, hd, True, 0, 0.0,
+             150),
+            (f"tile_softcap_hd{hd}", 1, 131, 131, H, KV, hd, True, 0, 30.0,
+             None),
+        ]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for (name, B, Sq, Skv, H, KV, hd, causal, win, cap,
              empty_from) in flash_cases:
             q, k, v = flash_inputs(gen, dev, dtype, B, Sq, Skv, H, KV, hd)
             kpos = torch.arange(Skv, dtype=torch.int32, device=dev)
-            if empty_from is not None:     # dense decode: unwritten slots
+            if empty_from is not None:     # dense cache: unwritten slots
                 kpos = torch.where(kpos < empty_from, kpos, -1)
-                qpos = torch.tensor([empty_from - 1], dtype=torch.int32,
-                                    device=dev)
+                qpos = torch.arange(empty_from - Sq, empty_from,
+                                    dtype=torch.int32, device=dev)
             else:
                 qpos = torch.arange(Skv - Sq, Skv, dtype=torch.int32,
                                     device=dev)
@@ -552,7 +602,8 @@ def profile_serve(cfg, params, prompts, dev, untraced_wall: float) -> dict:
     # around back-to-back calls include
     ours = {}
     for name in launch_counters():
-        hits = [e for e in events if f"{name}_kernel" in e.key]
+        # flash_attention_{wgmma,f32}_kernel, paged_attention_kernel, ...
+        hits = [e for e in events if name in e.key]
         calls = sum(e.count for e in hits)
         if calls:
             ours[name] = {"calls": calls, "device_ms_per_call":
@@ -615,87 +666,158 @@ def set_bound(row: dict, flops_per_s: float) -> dict:
     return row
 
 
-def attention_timing(dev, cfg, seed: int) -> dict:
-    """Both attention kernels at ``cfg``'s shapes in bf16, with its window
-    (0 for global attention): paged, one decode step of the trace's first
-    four lanes 16 tokens in; flash, the prefill of the trace's 131-row
-    prompt, beside one ``scaled_dot_product_attention`` call (GQA heads
-    expanded; causal, with the window as a mask where it cuts the
-    prompt)."""
+def profiled_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call on ``torch.profiler``'s clock (the clock of
+    the serve trace's per-kernel device times): for each kernel name that
+    ``iters`` calls launch, its mean device time per launch, summed over
+    the names.  The profiler may drop some of a session's kernel records,
+    so the mean is taken over the records it kept; a session that kept
+    none is repeated, up to three times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.count
+                   and device_us(e) > 0]
+        if kernels:
+            return sum(device_us(e) / e.count for e in kernels) / 1e3
+    raise RuntimeError("the profiler recorded no kernel in three sessions")
+
+
+def paged_timing(gen, dev, cfg, lens, max_blocks) -> dict:
+    """The paged kernel in bf16 at ``cfg``'s heads and window, one decode
+    step of lanes with contexts ``lens``, with the wrapper's own split."""
+    import torch
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    win = cfg.window_size
+    B = len(lens)
+    q, kp, vp, tbl, ln = paged_inputs(gen, dev, torch.bfloat16, B, H, KV,
+                                      hd, BLOCK, max_blocks, lens)
+    # the rows each lane attends: its last ``window`` ones with a window
+    used = [min(n, win) if win else n for n in lens]
+    rows_used = sum(used)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    row = {
+        "shape": {"B": B, "H": H, "KV": KV, "hd": hd, "bs": BLOCK,
+                  "max_blocks": max_blocks, "context_lens": lens,
+                  "window": win, "dtype": "bfloat16",
+                  "n_split": pa_ops.choose_split(B, H, KV, max_blocks,
+                                                 BLOCK, win, n_sm)},
+        "ms": time_ms(lambda: pa_ops.paged_attention(q, kp, vp, tbl, ln,
+                                                     window=win)),
+        "device_ms": profiled_ms(lambda: pa_ops.paged_attention(
+            q, kp, vp, tbl, ln, window=win)),
+        "plain_ms": time_ms(lambda: pa_ref.reference(
+            q[:, None], kp, vp, tbl, ln, q_positions=(ln - 1)[:, None],
+            window=win)),
+        "bytes": (2 * rows_used * KV * hd * 2 + 2 * q.numel() * 2
+                  + sum(-(-n // BLOCK) for n in used) * 4 + B * 4),
+        "flops": 4 * rows_used * H * hd,
+        "library_ms": None, "library_device_ms": None,
+    }
+    row["shape"]["ctas"] = B * KV * row["shape"]["n_split"]
+    return set_bound(row, BF16_FLOPS_PER_S)
+
+
+def flash_timing(gen, dev, cfg, S) -> dict:
+    """The flash kernel in bf16 at ``cfg``'s heads and window, one causal
+    S-row prompt, beside one ``scaled_dot_product_attention`` call (GQA
+    heads expanded; the window as a mask where it cuts the prompt), both
+    timed by CUDA events and by the profiler's device time."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.kernels.paged_attention import ref as pa_ref
-
-    gen = torch.Generator(device=dev).manual_seed(seed)
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     win = cfg.window_size
-    bf = torch.bfloat16
-    lens = [n + 16 for n in PROMPT_LENS[:N_SLOTS]]
-    q, kp, vp, tbl, ln = paged_inputs(gen, dev, bf, N_SLOTS, H, KV, hd,
-                                      BLOCK, KV_LEN // BLOCK, lens)
-    # the rows each lane attends: its last ``window`` ones with a window
-    used = [min(n, win) if win else n for n in lens]
-    rows_used = sum(used)
-    p_bytes = (2 * rows_used * KV * hd * 2 + 2 * q.numel() * 2
-               + sum(-(-n // BLOCK) for n in used) * 4 + N_SLOTS * 4)
-    p_flops = 4 * rows_used * H * hd
-    paged = {
-        "shape": {"B": N_SLOTS, "H": H, "KV": KV, "hd": hd, "bs": BLOCK,
-                  "max_blocks": KV_LEN // BLOCK, "context_lens": lens,
-                  "window": win, "dtype": "bfloat16"},
-        "ms": time_ms(lambda: pa_ops.paged_attention(q, kp, vp, tbl, ln,
-                                                     window=win)),
-        "plain_ms": time_ms(lambda: pa_ref.reference(
-            q[:, None], kp, vp, tbl, ln, q_positions=(ln - 1)[:, None],
-            window=win)),
-        "bytes": p_bytes, "flops": p_flops, "library_ms": None,
-    }
-    S = PROMPT_LENS[3]
-    q, k, v = flash_inputs(gen, dev, bf, 1, S, S, H, KV, hd)
+    q, k, v = flash_inputs(gen, dev, torch.bfloat16, 1, S, S, H, KV, hd)
     pos = torch.arange(S, dtype=torch.int32, device=dev)
-    f_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     # visible (query, key) pairs only: causal, inside the window
     pairs = sum(min(i + 1, win) if win else i + 1 for i in range(S))
-    f_flops = 4 * pairs * H * hd
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     kt, vt = (x.repeat_interleave(H // KV, dim=1) for x in (kt, vt))
     sdpa = {"is_causal": True}
     if win and win < S:
         dist = pos[:, None] - pos[None, :]
         sdpa = {"attn_mask": (dist >= 0) & (dist < win)}
-    flash = {
+
+    def kernel():
+        return fa_ops.flash_attention(q, k, v, q_positions=pos,
+                                      k_positions=pos, window=win)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
+
+    row = {
         "shape": {"B": 1, "Sq": S, "Skv": S, "H": H, "KV": KV, "hd": hd,
-                  "causal": True, "window": win, "dtype": "bfloat16"},
-        "ms": time_ms(lambda: fa_ops.flash_attention(
-            q, k, v, q_positions=pos, k_positions=pos, window=win)),
+                  "causal": True, "window": win, "dtype": "bfloat16",
+                  "grid": [-(-S // 64), H], "tile": "64 query rows x 64 keys,"
+                  " one warpgroup"},
+        "ms": time_ms(kernel),
+        "device_ms": profiled_ms(kernel),
         "plain_ms": time_ms(lambda: fa_ref.reference(
             q, k, v, q_positions=pos, k_positions=pos, window=win)),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, **sdpa)),
-        "bytes": f_bytes, "flops": f_flops,
+        "library_ms": time_ms(library),
+        "library_device_ms": profiled_ms(library),
+        "bytes": 2 * (2 * q.numel() + k.numel() + v.numel()),
+        "flops": 4 * pairs * H * hd,
     }
-    for row in (paged, flash):
-        set_bound(row, BF16_FLOPS_PER_S)
-    return {"paged_attention": paged, "flash_attention": flash}
+    return set_bound(row, BF16_FLOPS_PER_S)
 
 
-def phase_timing(dev, served: dict) -> dict:
-    """TinyLlama's path: the bf16 trace and both attention kernels."""
+def attention_timing(dev, cfg, seed: int) -> dict:
+    """Both attention kernels at ``cfg``'s shapes in bf16: paged, one
+    decode step of the trace's first four lanes 16 tokens in, and one lane
+    4096 rows in; flash, the prefill of the trace's 131-row prompt, and a
+    2048-row prompt (past the ~660-row ridge, where the tensor cores bound
+    it)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lens = [n + 16 for n in PROMPT_LENS[:N_SLOTS]]
+    return {
+        "paged_attention": paged_timing(gen, dev, cfg, lens,
+                                        KV_LEN // BLOCK),
+        "paged_attention_long": paged_timing(gen, dev, cfg, [4096],
+                                             4096 // BLOCK),
+        "flash_attention": flash_timing(gen, dev, cfg, PROMPT_LENS[3]),
+        "flash_attention_long": flash_timing(gen, dev, cfg, 2048),
+    }
+
+
+def phase_kernel_timing(dev) -> dict:
+    """Both attention kernels at TinyLlama's and recurrentgemma's shapes,
+    ``{arch: rows}``.  They run before any serve trace: the profiler's
+    short sessions lose their kernel records after the long mamba2 trace
+    has been profiled in the same process."""
+    from repro_torch import configs
+    timing = {arch: attention_timing(dev, configs.get(arch), seed)
+              for arch, seed in ((ARCH, 99), (RG_ARCH, 97))}
+    emit("kernel_timing", dtype="bfloat16", **timing)
+    return timing
+
+
+def phase_timing(dev, served: dict) -> None:
+    """TinyLlama's path: the bf16 trace."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
 
     cfg = served["cfg"]
     serve, params = time_serve(dev, served)
     del params
-    rows = attention_timing(dev, cfg, seed=99)
     emit("timing", arch=cfg.name, dtype="bfloat16", serve=serve,
          launches_bf16={"paged_attention": pa_ops.paged_attention.launches,
-                        "flash_attention": fa_ops.flash_attention.launches},
-         **rows)
-    return rows
+                        "flash_attention": fa_ops.flash_attention.launches})
 
 
 def phase_timing_ssm(dev, served: dict) -> dict:
@@ -736,11 +858,10 @@ def phase_timing_ssm(dev, served: dict) -> dict:
 
 
 def phase_timing_rg(dev, served: dict) -> dict:
-    """recurrentgemma-2b's path: the bf16 trace, both attention kernels at
-    hd 256 with its window, and the RG-LRU-scan kernel at each of the
-    trace's prompt shapes (one prefill's call: B 1, W 2560, f32 a and bx,
-    the fresh cache's zero state as h0), the 131-row prompt as the summary
-    row."""
+    """recurrentgemma-2b's path: the bf16 trace and the RG-LRU-scan kernel
+    at each of the trace's prompt shapes (one prefill's call: B 1, W 2560,
+    f32 a and bx, the fresh cache's zero state as h0), the 131-row prompt
+    as the summary row."""
     import torch
     from repro_torch.kernels.rglru_scan import ops as rglru_ops
     from repro_torch.kernels.rglru_scan import ref as rglru_ref
@@ -748,7 +869,6 @@ def phase_timing_rg(dev, served: dict) -> dict:
     cfg = served["cfg"]
     serve, params = time_serve(dev, served)
     del params
-    rows = attention_timing(dev, cfg, seed=97)
     gen = torch.Generator(device=dev).manual_seed(96)
     W = cfg.lru_width
     by_len = []
@@ -770,8 +890,8 @@ def phase_timing_rg(dev, served: dict) -> dict:
     emit("timing", arch=cfg.name, dtype="bfloat16", serve=serve,
          launches_bf16={name: fn.launches
                         for name, fn in launch_counters().items()},
-         rglru_scan=main, rglru_scan_by_prompt=by_len, **rows)
-    return {"rglru_scan": main, **rows}
+         rglru_scan=main, rglru_scan_by_prompt=by_len)
+    return {"rglru_scan": main}
 
 
 def main() -> int:
@@ -803,21 +923,26 @@ def main() -> int:
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
         built = _build.build_all()
+        # per kernel: its (mangled) name, registers, stack and spills
+        keep = ("Compiling entry function", "registers", "spill")
         logs = {name: [ln.strip() for ln in
                        (_build.BUILD_DIR / f"{name}.log").read_text()
-                       .splitlines() if "registers" in ln or "spill" in ln]
+                       .splitlines() if any(k in ln for k in keep)]
                 for name in built}
         emit("build", seconds=time.perf_counter() - t0, built=built,
              nvcc=_build.nvcc(), ptxas=logs)
 
         phase = "kernels"
         errs = phase_kernels(dev)
+        phase = "kernel_timing"
+        attention = phase_kernel_timing(dev)
+        timing, timing_rg = attention[ARCH], attention[RG_ARCH]
         # one path after the other, so that neither path's weights count
         # in the other's peak memory
         phase = "serve"
         served = phase_serve(dev, ARCH)
         phase = "timing"
-        timing = phase_timing(dev, served)
+        phase_timing(dev, served)
         phase = "serve"
         served_ssm = phase_serve(dev, SSM_ARCH)
         phase = "timing"
@@ -825,8 +950,7 @@ def main() -> int:
         phase = "serve"
         served_rg = phase_serve(dev, RG_ARCH)
         phase = "timing"
-        timing_rg = phase_timing_rg(dev, served_rg)
-        timing["rglru_scan"] = timing_rg.pop("rglru_scan")
+        timing.update(phase_timing_rg(dev, served_rg))
         # each kernel's launches over the main paths' runs, and by path
         by_path = {s["cfg"].name: s["launches"]
                    for s in (served, served_ssm, served_rg)}
@@ -847,6 +971,7 @@ def main() -> int:
         "rglru_scan": "src/repro/kernels/rglru_scan/rglru_scan.py:53",
     }
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    device = ("device_ms", "library_device_ms")
     summary = []
     for name in ("paged_attention", "flash_attention", "ssd_scan",
                  "rglru_scan"):
@@ -856,8 +981,14 @@ def main() -> int:
                **{k: timing[name][k] for k in timed},
                "launches_by_path": {arch: counts[name] for arch, counts
                                     in by_path.items() if counts[name]}}
-        if name in timing_rg:        # the same kernel at hd 256
-            row["hd256"] = {k: timing_rg[name][k] for k in timed}
+        if name in timing_rg:        # the attention kernels: device times,
+            # hd 256, and the long shapes (context 4096, prompt 2048)
+            row.update({k: timing[name][k] for k in device})
+            row["hd256"] = {k: timing_rg[name][k] for k in timed + device}
+            row["long"] = {k: timing[name + "_long"][k]
+                           for k in timed + device}
+            row["long_hd256"] = {k: timing_rg[name + "_long"][k]
+                                 for k in timed + device}
         summary.append(row)
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)

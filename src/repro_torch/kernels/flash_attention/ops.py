@@ -2,8 +2,13 @@
 
 A CUDA tensor launches the hand-written Hopper kernel
 (``flash_attention.cu``), whatever the sequence lengths: the kernel masks
-the ragged edges itself.  A CPU tensor runs the plain PyTorch version
-(``ref.reference``).  What the kernel does not take raises on either
+the ragged edges itself.  Its C entry point dispatches on the input's
+dtype, and both bodies compute the same function to the JAX kernel's bars:
+bfloat16 runs the tensor-core body (``wgmma`` for Q K^T and for P V, f32
+accumulators, P rounded to bf16 as the Pallas kernel rounds it); float32
+runs the CUDA-core body in full f32, since a float32 ``wgmma`` is TF32 and
+could not meet the f32 bar of 2e-5.  A CPU tensor runs the plain PyTorch
+version (``ref.reference``).  What the kernel does not take raises on either
 device: ``H % KV != 0``, a V head dim that differs from Q's (MLA comes with
 a later kernel), a head dim outside 16/64/128/256, a dtype other than
 float32/bfloat16, non-contiguous inputs.  There is no quiet fallback.

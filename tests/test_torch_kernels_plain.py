@@ -8,6 +8,8 @@ run the plain version without counting a launch, and what the CUDA kernels
 do not take raises on any device.
 """
 
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -90,6 +92,121 @@ def test_paged_plain_multirow_queries_match_jax():
                                q_positions=torch.from_numpy(qpos),
                                window=window)
         assert np.abs(got.numpy() - exp).max() < 1e-5
+
+
+SPLIT_CASES = [
+    # kv_heads, window, softcap: MQA and GQA, global and a window shorter
+    # than the longer lanes' contexts
+    (1, 0, 0.0), (4, 0, 0.0), (1, 12, 0.0), (4, 12, 30.0)]
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7])
+@pytest.mark.parametrize("kv_heads,window,softcap", SPLIT_CASES)
+def test_paged_split_reference_matches_jax(n_split, kv_heads, window,
+                                           softcap):
+    """The kernel's split over the context and its combine, as plain
+    PyTorch, against the JAX oracle: a lane of context 1 (every split but
+    one empty at n_split > 1), lanes ending inside a block and on a block
+    boundary, the table's full reach."""
+    arrs = _paged_case(11, B=4, H=4, KV=kv_heads, hd=16, bs=8, width=6,
+                       lens=[1, 9, 40, 48])
+    jq, jkp, jvp, jtab, jlens = _j(*arrs)
+    exp = np.asarray(jpa_ref.reference(
+        jq[:, None], jkp, jvp, jtab, jlens, q_positions=(jlens - 1)[:, None],
+        logit_softcap=softcap, window=window))[:, 0]
+    tq, tkp, tvp, ttab, tlens = _t(*arrs)
+    got = pa_ref.split_reference(tq, tkp, tvp, ttab, tlens, n_split=n_split,
+                                 logit_softcap=softcap, window=window)
+    assert np.abs(got.numpy() - exp).max() < 1e-5
+    before = pa_ops.paged_attention.launches
+    via_ops = pa_ops.paged_attention(tq, tkp, tvp, ttab, tlens,
+                                     logit_softcap=softcap, window=window,
+                                     n_split=n_split)
+    assert torch.equal(via_ops, got)
+    assert pa_ops.paged_attention.launches == before   # CPU: no launch
+    # bf16: probabilities rounded to bf16 before the product with V, as the
+    # kernel and the JAX oracle round them
+    exp16 = jpa_ref.reference(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (arrs[0][:, None], arrs[1],
+                                                 arrs[2])),
+        jtab, jlens, q_positions=(jlens - 1)[:, None], logit_softcap=softcap,
+        window=window)[:, 0]
+    got16 = pa_ref.split_reference(tq.bfloat16(), tkp.bfloat16(),
+                                   tvp.bfloat16(), ttab, tlens,
+                                   n_split=n_split, logit_softcap=softcap,
+                                   window=window)
+    assert got16.dtype == torch.bfloat16
+    assert np.abs(got16.float().numpy()
+                  - np.asarray(exp16, np.float32)).max() < 2e-2
+
+
+def test_paged_split_bounds_partition_each_lane():
+    """Each lane's rows inside the window, [first, n_rows), cut by whole
+    blocks into contiguous ranges of at least ``min_blocks`` blocks (but the
+    last); the empty ranges come after the live ones."""
+    lens = torch.tensor([1, 9, 40, 48, 30], dtype=torch.int32)
+    bs, width = 8, 6
+    for window, n_split, min_blocks in itertools.product(
+            (0, 12), (1, 2, 3, 7), (1, 2)):
+        begin, end = pa_ref.split_bounds(lens, block_size=bs,
+                                         max_blocks=width, n_split=n_split,
+                                         window=window, min_blocks=min_blocks)
+        for b, n in enumerate(lens.tolist()):
+            first = max(0, n - window) if window else 0
+            rows, spans = [], []
+            for s in range(n_split):
+                lo, hi = begin[b, s].item(), end[b, s].item()
+                if lo >= hi:
+                    continue
+                assert lo == first or lo % bs == 0
+                assert hi == n or hi % bs == 0
+                rows += list(range(lo, hi))
+                spans.append(-(-hi // bs) - lo // bs)
+            assert rows == list(range(first, n))
+            assert all(k >= min_blocks for k in spans[:-1])
+            live = (begin[b] < end[b]).tolist()
+            assert live == sorted(live, reverse=True)      # empties last
+    # a lane of context 1 at n_split 7: one live split, six empty
+    begin, end = pa_ref.split_bounds(lens[:1], block_size=bs,
+                                     max_blocks=width, n_split=7)
+    assert (begin < end).sum().item() == 1
+
+
+def test_combine_partials_skips_empty_splits():
+    """Empty splits (m = -inf, l = 0) drop out without NaN, whatever their
+    scratch holds; a lane with no rows at all gives zeros."""
+    rng = np.random.default_rng(12)
+    m = torch.from_numpy(rng.standard_normal((2, 3, 4)).astype(np.float32))
+    l = torch.from_numpy(rng.uniform(1, 3, (2, 3, 4)).astype(np.float32))
+    acc = torch.from_numpy(rng.standard_normal((2, 3, 4, 16))
+                           .astype(np.float32))
+    m[0, :, 1:] = -np.inf       # lane 0: only split 0 has rows
+    l[0, :, 1:] = 0.0
+    acc[0, :, 1:] = np.nan      # never read
+    m[1, 2] = -np.inf           # lane 1, head 2: no rows at all
+    l[1, 2] = 0.0
+    acc[1, 2] = np.nan
+    out = pa_ref.combine_partials(m, l, acc)
+    assert torch.isfinite(out).all()
+    assert torch.allclose(out[0], acc[0, :, 0] / l[0, :, 0, None])
+    assert torch.equal(out[1, 2], torch.zeros(16))
+    w = torch.exp(m[1, :2] - m[1, :2].amax(-1, keepdim=True))
+    exp = (w[..., None] * acc[1, :2]).sum(-2) / (w * l[1, :2]).sum(
+        -1, keepdim=True)
+    assert torch.allclose(out[1, :2], exp, atol=1e-6)
+
+
+@pytest.mark.parametrize("B,H,KV,max_blocks,window,expect", [
+    (4, 32, 4, 32, 0, 9),        # TinyLlama's trace: 16 (lane, KV) pairs
+    (4, 10, 1, 32, 2048, 11),    # recurrentgemma's: splits of >= 3 blocks
+    (1, 32, 4, 256, 0, 32),      # one lane at context 4096: the cap
+    (1, 10, 1, 256, 2048, 32),   # the same under a window of 2048
+    (1, 10, 1, 256, 100, 3),     # a short window: ceil(100 / 16) + 1 blocks
+    (64, 32, 4, 32, 0, 1),       # a full batch needs no split
+])
+def test_paged_wrapper_split_choice(B, H, KV, max_blocks, window, expect):
+    assert pa_ops.choose_split(B, H, KV, max_blocks, 16, window,
+                               132) == expect
 
 
 FLASH_CASES = [
@@ -175,6 +292,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
         pa_ops.paged_attention(q[..., :8].contiguous(),
                                kp[..., :8].contiguous(),
                                vp[..., :8].contiguous(), tables, lens)
+    wide = torch.zeros((1, 17, 256))            # 17 heads on one KV head
+    pool = torch.zeros((2, 8, 1, 256))
+    with pytest.raises(ValueError, match="heads per KV head"):
+        pa_ops.paged_attention(wide, pool, pool, tables[:1], lens[:1])
+    for bad in (0, -1, 257, 2.0, True, "3"):
+        with pytest.raises(ValueError, match="n_split"):
+            pa_ops.paged_attention(q, kp, vp, tables, lens, n_split=bad)
 
     rng = np.random.default_rng(6)
     fq, fk, fv = _t(rng.standard_normal((1, 9, 4, 16)).astype(np.float32),
