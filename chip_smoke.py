@@ -25,19 +25,30 @@ exit code:
    cached prefill (37 queries, 256 slots of which the last 106 are -1) and
    a softcap.  SSD scan: the JAX test's four
    cases and full-width mamba2-370m shapes (nh 32, hd 64, ns 128) at S =
-   17, 131, 200 and 512, each with and without an initial state, xs/B/C in
-   f32 and bf16; 1e-4 on y and on the final state.  RG-LRU scan: the JAX
-   test's four cases at 1e-4, its near-one decay case at 1e-3 with finite
-   outputs, and full width (B 1, W 2560) at S = 17, 131 and 200, each with
-   and without a random initial state, 1e-4 on hs and h_final.
+   17, 131, 200 and 512, at the edges of the tensor-core body's 64-row
+   chunks (S = 1, 63, 64, 65, 129) and at S = 2048, a batch of 4 with an
+   odd head count at ns 8 (hd 64 and hd 8), and x/B/C one element past an
+   aligned address, each with and without an initial state, xs/B/C in f32
+   (the CUDA-core body) and bf16 (the tensor-core body); 1e-4 on y and on
+   the final state.  RG-LRU scan: the JAX test's four cases at 1e-4, its
+   near-one decay case at 1e-3 with finite outputs (also over 2048 rows),
+   and full width (B 1, W 2560) at S = 17, 131 and 200, at the edges of the
+   wrapper's super-chunks (S = 1, 128, 129, 512, 513), at S = 2048 and
+   4096, at W 2500 (not a multiple of the 16-channel block), at B 4, and
+   with forced chunk counts 1, 3 and 16, each with and without a random
+   initial state, 1e-4 on hs and h_final; each case also records whether
+   the kernel equals ``ref.chunked_reference`` bit for bit.
 4. kernel_timing — both attention kernels in bf16 at TinyLlama's and
-   recurrentgemma's head shapes, before any trace: per launch by CUDA
+   recurrentgemma's head shapes, and the scans at mamba2-370m's and
+   recurrentgemma-2b's (the SSD kernel's bf16 body; the RG-LRU kernel with
+   the wrapper's chunk count), before any trace: per launch by CUDA
    events around 50 back-to-back calls and on the profiler's device clock
    (the serve trace's clock), beside the plain version, the bound and, for
    flash, one ``scaled_dot_product_attention`` call on both clocks (a
    yardstick; the port never calls it); at the trace's shapes (paged: its
-   first four lanes 16 tokens in; flash: its 131-row prompt) and a long
-   one each (paged: one lane 4096 rows in; flash: a 2048-row prompt).
+   first four lanes 16 tokens in; flash and the scans: its 131-row prompt)
+   and a long one each (paged: one lane 4096 rows in; flash and the scans:
+   a 2048-row prompt).
 5. serve   — the three main paths, one after the other (each followed by
    its timing, so that one path's weights never count in the other's
    peak memory), each with every launch counter zeroed
@@ -55,18 +66,19 @@ exit code:
    launches per decode step, no SSD launch, and no block, ring or state
    slot left in use.
 6. timing  — each trace in bf16: tokens/s, mean decode step and prefill,
-   peak memory, a repeat under ``torch.profiler`` (device time by kernel
+   peak memory, and a repeat under ``torch.profiler`` (device time by kernel
    name, the device's busy share, and each port kernel's device time per
-   launch on the path), and the scans' time per launch at their path's
-   shapes (CUDA events around 50 back-to-back calls) beside their plain
-   versions and bounds.
+   launch on the path, with the kernel functions it ran: mamba2's must be
+   the SSD kernel's tensor-core body only).
 
 Then the ``{"kernels": [...]}`` summary line (paged and flash attention at
-TinyLlama's hd 64, with recurrentgemma's hd 256 beside them), the card's
-``name, power.limit`` line, and last ``{"ok": true, "device": ...}``.
-Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of device memory,
-989 TFLOP/s of dense bf16 tensor-core math and 67 TFLOP/s of f32 math
-outside the tensor cores (the SSD scan's arithmetic).
+TinyLlama's hd 64, with recurrentgemma's hd 256 beside them; every kernel
+with its long shape), the card's ``name, power.limit`` line, and last
+``{"ok": true, "device": ...}``.  The build phase also counts each kernel
+function's tensor-core instructions (``cuobjdump -sass``).  Bounds use the
+H100 SXM data-sheet peaks: 3.35 TB/s of device memory, 989 TFLOP/s of
+dense bf16 tensor-core math (the SSD kernel's bf16 body) and 67 TFLOP/s of
+f32 math outside the tensor cores (given beside it for the SSD scan).
 """
 
 from __future__ import annotations
@@ -97,7 +109,7 @@ TOL = {("paged", "float32"): 1e-5, ("flash", "float32"): 2e-5,
        ("paged", "bfloat16"): 2e-2, ("flash", "bfloat16"): 2e-2,
        ("ssd", "float32"): 1e-4, ("ssd", "bfloat16"): 1e-4,
        ("rglru", "float32"): 1e-4, ("rglru", "near_one"): 1e-3}
-SSD_CHUNK = 32          # rows per chunk of the SSD-scan kernel
+SSD_CHUNK = 32          # the chunk ssd_cost counts C B^T over
 
 
 def emit(phase: str, **fields) -> None:
@@ -115,6 +127,37 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def mma_counts(name: str):
+    """Tensor-core instructions per kernel function in kernel ``name``'s
+    library, by ``cuobjdump -sass``: ``{function: {opcode: count}}`` for
+    the opcodes that name a matrix product (``HMMA...``, ``HGMMA...``);
+    None where the toolkit has no ``cuobjdump``."""
+    import re
+    import shutil
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        tool = shutil.which("cuobjdump")
+        if tool is None:
+            return None
+    out = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    # "/*0a40*/  @P0 HMMA.16816.F32.BF16 R4, R8, R12, R4 ;": the opcode
+    # follows the address and an optional predicate
+    opcode = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)")
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            continue
+        m = opcode.search(line)
+        if fn is not None and m and "MMA" in m.group(1).split(".")[0]:
+            per = counts.setdefault(fn, {})
+            per[m.group(1)] = per.get(m.group(1), 0) + 1
+    return counts
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -183,6 +226,31 @@ def rglru_inputs(gen, dev, B, S, W):
     a = torch.sigmoid(torch.randn((B, S, W), generator=gen, device=dev))
     bx = torch.randn((B, S, W), generator=gen, device=dev)
     return a, bx
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` that starts one element past an aligned
+    address (as a view into a larger buffer can)."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def rglru_bitwise(a, bx, h0, hs, hf, n_chunks) -> bool:
+    """Whether the kernel's outputs equal the plain version in the kernel's
+    order (``chunked_reference``) bit for bit, at the chunk count the
+    kernel ran."""
+    import torch
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.kernels.rglru_scan import ref as rglru_ref
+    B, S, W = a.shape
+    if n_chunks is None:
+        n_sm = torch.cuda.get_device_properties(a.device).multi_processor_count
+        n_chunks = rglru_ops.choose_chunks(B, S, W, n_sm)
+    he, hfe = rglru_ref.chunked_reference(a, bx, h0, n_chunks=n_chunks)
+    return bool(torch.equal(hs, he) and torch.equal(hf, hfe))
 
 
 def rglru_cost(B, S, W) -> tuple:
@@ -347,11 +415,23 @@ def phase_kernels(dev) -> dict:
         ("main_200", 1, 200, 32, 64, 128, 256),
         ("main_512", 1, 512, 32, 64, 128, 256),
     ]
+    # the tensor-core body's 64-row chunks: one row, the chunk's edges, a
+    # long prompt, a batch of 4 with an odd head count at ns 8 (K padded to
+    # 16) and at hd 8, and inputs that are not 16-byte aligned
+    ssd_cases += [(f"chunk_{S}", 1, S, 32, 64, 128, 256)
+                  for S in (1, 63, 64, 65, 129, 2048)]
+    ssd_cases += [("b4_nh5_ns8", 4, 131, 5, 64, 8, 256),
+                  ("b4_nh3_hd8_ns8", 4, 77, 3, 8, 8, 256),
+                  ("unaligned_131", 1, 131, 32, 64, 128, 256)]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for name, B, S, nh, hd, ns, chunk in ssd_cases:
             for seeded in (False, True):
                 args = ssd_inputs(gen, dev, dtype, B, S, nh, hd, ns)
+                if name.startswith("unaligned"):
+                    # x, B and C one element past an aligned address
+                    args = [misaligned(t) if t.dtype == dtype and t.dim() > 1
+                            else t for t in args]
                 h0 = (torch.randn((B, nh, hd, ns), generator=gen,
                                   device=dev) if seeded else None)
                 y, st = ssd_ops.ssd_scan(*args, init_state=h0)
@@ -368,19 +448,30 @@ def phase_kernels(dev) -> dict:
                 if dname == "float32" and name.startswith("main"):
                     main_err["ssd_scan"] = max(main_err["ssd_scan"], err)
     rglru_cases = [
-        # name, B, S, W (the JAX test's CASES first)
-        ("jax_case0", 2, 64, 128), ("jax_case1", 1, 128, 256),
-        ("jax_case2", 2, 96, 64), ("jax_case3", 1, 32, 512),
-        ("main_17", 1, 17, 2560), ("main_131", 1, 131, 2560),
-        ("main_200", 1, 200, 2560),
+        # name, B, S, W, n_chunks (the JAX test's CASES first)
+        ("jax_case0", 2, 64, 128, None), ("jax_case1", 1, 128, 256, None),
+        ("jax_case2", 2, 96, 64, None), ("jax_case3", 1, 32, 512, None),
+        ("main_17", 1, 17, 2560, None), ("main_131", 1, 131, 2560, None),
+        ("main_200", 1, 200, 2560, None),
     ]
+    # the split over the sequence: one row; the edges of the wrapper's
+    # super-chunks at B 1, W 2560 (16 chunks of 8 rows at S 128, 32 of 16
+    # at S 512); long prompts; a width that is not a multiple of the 16-channel
+    # block; a batch of 4; forced chunk counts of 1, 3 and 16
+    rglru_cases += [(f"seq_{S}", 1, S, 2560, None)
+                    for S in (1, 128, 129, 512, 513, 2048, 4096)]
+    rglru_cases += [("w2500_131", 1, 131, 2500, None),
+                    ("w2500_2048", 1, 2048, 2500, None),
+                    ("b4_131", 4, 131, 2560, None)]
+    rglru_cases += [(f"k{k}_{S}", 1, S, 2500, k)
+                    for k in (1, 3, 16) for S in (131, 2048)]
     main_err["rglru_scan"] = 0.0
-    for name, B, S, W in rglru_cases:
+    for name, B, S, W, n_chunks in rglru_cases:
         for seeded in (False, True):
             a, bx = rglru_inputs(gen, dev, B, S, W)
             h0 = (torch.randn((B, W), generator=gen, device=dev)
                   if seeded else None)
-            hs, hf = rglru_ops.rglru_scan(a, bx, h0)
+            hs, hf = rglru_ops.rglru_scan(a, bx, h0, n_chunks=n_chunks)
             torch.cuda.synchronize()
             he, hfe = rglru_ref.reference(a, bx, h0)
             err = max((hs - he).abs().max().item(),
@@ -388,21 +479,28 @@ def phase_kernels(dev) -> dict:
             tol = TOL[("rglru", "float32")]
             rows.append({"kernel": "rglru_scan", "case": name,
                          "dtype": "float32", "init_state": seeded,
-                         "max_abs_err": err, "tol": tol, "ok": err < tol})
+                         "n_chunks": n_chunks, "max_abs_err": err,
+                         "tol": tol, "ok": err < tol,
+                         "chunked_bitwise": rglru_bitwise(a, bx, h0, hs, hf,
+                                                          n_chunks)})
             if name.startswith("main"):
                 main_err["rglru_scan"] = max(main_err["rglru_scan"], err)
-    # the JAX test's near-one decay: long memory must stay finite
-    a = torch.full((1, 128, 64), 0.9999, device=dev)
-    bx = torch.full((1, 128, 64), 1e-3, device=dev)
-    hs, hf = rglru_ops.rglru_scan(a, bx)
-    torch.cuda.synchronize()
-    he, _ = rglru_ref.reference(a, bx)
-    err = (hs - he).abs().max().item()
-    tol = TOL[("rglru", "near_one")]
-    finite = bool(torch.isfinite(hs).all() and torch.isfinite(hf).all())
-    rows.append({"kernel": "rglru_scan", "case": "near_one_decay",
-                 "dtype": "float32", "init_state": False, "finite": finite,
-                 "max_abs_err": err, "tol": tol, "ok": finite and err < tol})
+    # the JAX test's near-one decay: long memory must stay finite; also over
+    # 2048 rows, where the chunks' incoming states carry it
+    for S in (128, 2048):
+        a = torch.full((1, S, 64), 0.9999, device=dev)
+        bx = torch.full((1, S, 64), 1e-3, device=dev)
+        hs, hf = rglru_ops.rglru_scan(a, bx)
+        torch.cuda.synchronize()
+        he, _ = rglru_ref.reference(a, bx)
+        err = (hs - he).abs().max().item()
+        tol = TOL[("rglru", "near_one")]
+        finite = bool(torch.isfinite(hs).all() and torch.isfinite(hf).all())
+        rows.append({"kernel": "rglru_scan",
+                     "case": "near_one_decay" + ("" if S == 128 else f"_{S}"),
+                     "dtype": "float32", "init_state": False,
+                     "finite": finite, "max_abs_err": err, "tol": tol,
+                     "ok": finite and err < tol})
     emit("kernels", cases=rows)
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
@@ -607,7 +705,8 @@ def profile_serve(cfg, params, prompts, dev, untraced_wall: float) -> dict:
         calls = sum(e.count for e in hits)
         if calls:
             ours[name] = {"calls": calls, "device_ms_per_call":
-                          sum(device_us(e) for e in hits) / calls / 1e3}
+                          sum(device_us(e) for e in hits) / calls / 1e3,
+                          "kernels": sorted({e.key[:80] for e in hits})}
     return {
         "traced_wall_seconds": wall,
         "tracing_overhead_seconds": wall - untraced_wall,
@@ -795,14 +894,86 @@ def attention_timing(dev, cfg, seed: int) -> dict:
     }
 
 
+def ssd_timing(gen, dev, cfg, S) -> dict:
+    """The SSD-scan kernel at ``cfg``'s shapes as one prefill of S rows
+    calls it (bf16 x/B/C, f32 dt, the fresh cache's zero state), on both
+    clocks, beside its plain version.  The bound is at the bf16 tensor-core
+    rate of the kernel's bf16 body; ``bound_ms_cuda_cores`` gives the same
+    work at the CUDA cores' f32 rate (the f32 body's)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    nh, hd, ns = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    args = ssd_inputs(gen, dev, torch.bfloat16, 1, S, nh, hd, ns)
+    h0 = torch.zeros((1, nh, hd, ns), device=dev)
+    nbytes, flops = ssd_cost(S, nh, hd, ns, 2, seeded=True)
+
+    def kernel():
+        return ssd_ops.ssd_scan(*args, init_state=h0)
+
+    row = {"shape": {"B": 1, "S": S, "nh": nh, "hd": hd, "ns": ns,
+                     "x_dtype": "bfloat16", "init_state": True,
+                     "grid": [hd // 16, nh, 1], "chunk_rows": 64},
+           "ms": time_ms(kernel), "device_ms": profiled_ms(kernel),
+           "plain_ms": time_ms(lambda: ssd_ref.reference(
+               *args, chunk=cfg.ssm_chunk, init_state=h0),
+               iters=50 if S < 1024 else 5),
+           "bytes": nbytes, "flops": flops,
+           "library_ms": None, "library_device_ms": None}
+    row["bound_ms_cuda_cores"] = set_bound(dict(row),
+                                           F32_FLOPS_PER_S)["bound_ms"]
+    return set_bound(row, BF16_FLOPS_PER_S)
+
+
+def rglru_timing(gen, dev, cfg, S) -> dict:
+    """The RG-LRU-scan kernel at ``cfg``'s width as one prefill of S rows
+    calls it (B 1, f32 a and bx, the fresh cache's zero state as h0), with
+    the wrapper's chunk count, on both clocks, beside its plain version."""
+    import torch
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.kernels.rglru_scan import ref as rglru_ref
+    W = cfg.lru_width
+    a, bx = rglru_inputs(gen, dev, 1, S, W)
+    h0 = torch.zeros((1, W), device=dev)
+    nbytes, flops = rglru_cost(1, S, W)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    k = rglru_ops.choose_chunks(1, S, W, n_sm)
+
+    def kernel():
+        return rglru_ops.rglru_scan(a, bx, h0)
+
+    row = {"shape": {"B": 1, "S": S, "W": W, "dtype": "float32",
+                     "init_state": True, "n_chunks": k,
+                     "chunk_rows": rglru_ref.chunk_rows(S, k),
+                     "ctas": -(-W // rglru_ops.CHANNELS),
+                     "threads_per_cta": rglru_ops.CHANNELS * k},
+           "ms": time_ms(kernel), "device_ms": profiled_ms(kernel),
+           "plain_ms": time_ms(lambda: rglru_ref.reference(a, bx, h0),
+                               iters=50 if S < 1024 else 5),
+           "bytes": nbytes, "flops": flops,
+           "library_ms": None, "library_device_ms": None}
+    return set_bound(row, F32_FLOPS_PER_S)
+
+
 def phase_kernel_timing(dev) -> dict:
-    """Both attention kernels at TinyLlama's and recurrentgemma's shapes,
-    ``{arch: rows}``.  They run before any serve trace: the profiler's
-    short sessions lose their kernel records after the long mamba2 trace
-    has been profiled in the same process."""
+    """Both attention kernels at TinyLlama's and recurrentgemma's shapes
+    (``{arch: rows}``), and the scans at mamba2-370m's and
+    recurrentgemma-2b's (``{"scans": rows}``), each at the trace's 131-row
+    prompt and at a 2048-row one.  They run before any serve trace: the
+    profiler's short sessions lose their kernel records after the long
+    mamba2 trace has been profiled in the same process."""
+    import torch
     from repro_torch import configs
     timing = {arch: attention_timing(dev, configs.get(arch), seed)
               for arch, seed in ((ARCH, 99), (RG_ARCH, 97))}
+    gen = torch.Generator(device=dev).manual_seed(98)
+    ssm, rg = configs.get(SSM_ARCH), configs.get(RG_ARCH)
+    timing["scans"] = {
+        "ssd_scan": ssd_timing(gen, dev, ssm, PROMPT_LENS[3]),
+        "ssd_scan_long": ssd_timing(gen, dev, ssm, 2048),
+        "rglru_scan": rglru_timing(gen, dev, rg, PROMPT_LENS[3]),
+        "rglru_scan_long": rglru_timing(gen, dev, rg, 2048),
+    }
     emit("kernel_timing", dtype="bfloat16", **timing)
     return timing
 
@@ -820,78 +991,29 @@ def phase_timing(dev, served: dict) -> None:
                         "flash_attention": fa_ops.flash_attention.launches})
 
 
-def phase_timing_ssm(dev, served: dict) -> dict:
-    """mamba2-370m's path: the bf16 trace and the SSD-scan kernel at each
-    of the trace's prompt shapes (one prefill's call: bf16 x/B/C, f32 dt,
-    the fresh cache's zero state), the 131-row prompt as the summary
-    row."""
-    import torch
+def phase_timing_ssm(dev, served: dict) -> None:
+    """mamba2-370m's path: the bf16 trace, which must launch the SSD
+    kernel's tensor-core body and no other."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
     cfg = served["cfg"]
     serve, params = time_serve(dev, served)
     del params
-    gen = torch.Generator(device=dev).manual_seed(98)
-    nh, hd, ns = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    by_len = []
-    for S in PROMPT_LENS:
-        args = ssd_inputs(gen, dev, torch.bfloat16, 1, S, nh, hd, ns)
-        h0 = torch.zeros((1, nh, hd, ns), device=dev)
-        nbytes, flops = ssd_cost(S, nh, hd, ns, 2, seeded=True)
-        row = {"S": S,
-               "ms": time_ms(lambda: ssd_ops.ssd_scan(*args, init_state=h0)),
-               "bytes": nbytes, "flops": flops}
-        if S == PROMPT_LENS[3]:
-            row["plain_ms"] = time_ms(lambda: ssd_ref.reference(
-                *args, chunk=cfg.ssm_chunk, init_state=h0))
-        by_len.append(set_bound(row, F32_FLOPS_PER_S))
-    main = dict(next(r for r in by_len if r["S"] == PROMPT_LENS[3]))
-    main.update(shape={"B": 1, "S": main.pop("S"), "nh": nh, "hd": hd,
-                       "ns": ns, "x_dtype": "bfloat16",
-                       "init_state": True},
-                library_ms=None)
     emit("timing", arch=cfg.name, dtype="bfloat16", serve=serve,
-         launches_bf16={"ssd_scan": ssd_ops.ssd_scan.launches},
-         ssd_scan=main, ssd_scan_by_prompt=by_len)
-    return {"ssd_scan": main}
+         launches_bf16={"ssd_scan": ssd_ops.ssd_scan.launches})
+    bodies = serve["profile"]["port_kernels"]["ssd_scan"]["kernels"]
+    check(bodies and all("ssd_scan_mma_kernel" in k for k in bodies),
+          f"the bf16 trace launched {bodies}, not the tensor-core body only")
 
 
-def phase_timing_rg(dev, served: dict) -> dict:
-    """recurrentgemma-2b's path: the bf16 trace and the RG-LRU-scan kernel
-    at each of the trace's prompt shapes (one prefill's call: B 1, W 2560,
-    f32 a and bx, the fresh cache's zero state as h0), the 131-row prompt
-    as the summary row."""
-    import torch
-    from repro_torch.kernels.rglru_scan import ops as rglru_ops
-    from repro_torch.kernels.rglru_scan import ref as rglru_ref
-
+def phase_timing_rg(dev, served: dict) -> None:
+    """recurrentgemma-2b's path: the bf16 trace."""
     cfg = served["cfg"]
     serve, params = time_serve(dev, served)
     del params
-    gen = torch.Generator(device=dev).manual_seed(96)
-    W = cfg.lru_width
-    by_len = []
-    for S in PROMPT_LENS:
-        a, bx = rglru_inputs(gen, dev, 1, S, W)
-        h0 = torch.zeros((1, W), device=dev)
-        nbytes, flops = rglru_cost(1, S, W)
-        row = {"S": S,
-               "ms": time_ms(lambda: rglru_ops.rglru_scan(a, bx, h0)),
-               "bytes": nbytes, "flops": flops}
-        if S == PROMPT_LENS[3]:
-            row["plain_ms"] = time_ms(lambda: rglru_ref.reference(a, bx,
-                                                                  h0))
-        by_len.append(set_bound(row, F32_FLOPS_PER_S))
-    main = dict(next(r for r in by_len if r["S"] == PROMPT_LENS[3]))
-    main.update(shape={"B": 1, "S": main.pop("S"), "W": W,
-                       "dtype": "float32", "init_state": True},
-                library_ms=None)
     emit("timing", arch=cfg.name, dtype="bfloat16", serve=serve,
          launches_bf16={name: fn.launches
-                        for name, fn in launch_counters().items()},
-         rglru_scan=main, rglru_scan_by_prompt=by_len)
-    return {"rglru_scan": main}
+                        for name, fn in launch_counters().items()})
 
 
 def main() -> int:
@@ -930,13 +1052,16 @@ def main() -> int:
                        .splitlines() if any(k in ln for k in keep)]
                 for name in built}
         emit("build", seconds=time.perf_counter() - t0, built=built,
-             nvcc=_build.nvcc(), ptxas=logs)
+             nvcc=_build.nvcc(), ptxas=logs,
+             tensor_core_instructions={name: mma_counts(name)
+                                       for name in _build.SOURCES})
 
         phase = "kernels"
         errs = phase_kernels(dev)
         phase = "kernel_timing"
-        attention = phase_kernel_timing(dev)
-        timing, timing_rg = attention[ARCH], attention[RG_ARCH]
+        measured = phase_kernel_timing(dev)
+        timing, timing_rg = measured[ARCH], measured[RG_ARCH]
+        timing.update(measured["scans"])
         # one path after the other, so that neither path's weights count
         # in the other's peak memory
         phase = "serve"
@@ -946,11 +1071,11 @@ def main() -> int:
         phase = "serve"
         served_ssm = phase_serve(dev, SSM_ARCH)
         phase = "timing"
-        timing.update(phase_timing_ssm(dev, served_ssm))
+        phase_timing_ssm(dev, served_ssm)
         phase = "serve"
         served_rg = phase_serve(dev, RG_ARCH)
         phase = "timing"
-        timing.update(phase_timing_rg(dev, served_rg))
+        phase_timing_rg(dev, served_rg)
         # each kernel's launches over the main paths' runs, and by path
         by_path = {s["cfg"].name: s["launches"]
                    for s in (served, served_ssm, served_rg)}
@@ -978,17 +1103,18 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": src.format(name),
                "replaces": replaces[name], "launches": launches[name],
                "max_abs_err": errs[name],
-               **{k: timing[name][k] for k in timed},
+               **{k: timing[name][k] for k in timed + device},
                "launches_by_path": {arch: counts[name] for arch, counts
-                                    in by_path.items() if counts[name]}}
-        if name in timing_rg:        # the attention kernels: device times,
-            # hd 256, and the long shapes (context 4096, prompt 2048)
-            row.update({k: timing[name][k] for k in device})
+                                    in by_path.items() if counts[name]},
+               # the long shapes: context 4096 (paged), prompts of 2048
+               "long": {k: timing[name + "_long"][k]
+                        for k in timed + device}}
+        if name in timing_rg:        # the attention kernels at hd 256
             row["hd256"] = {k: timing_rg[name][k] for k in timed + device}
-            row["long"] = {k: timing[name + "_long"][k]
-                           for k in timed + device}
             row["long_hd256"] = {k: timing_rg[name + "_long"][k]
                                  for k in timed + device}
+        if name == "ssd_scan":       # the same work on the CUDA cores
+            row["bound_ms_cuda_cores"] = timing[name]["bound_ms_cuda_cores"]
         summary.append(row)
     print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)

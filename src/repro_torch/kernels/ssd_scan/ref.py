@@ -1,10 +1,16 @@
-"""Plain PyTorch version of the SSD-scan kernel (a port of
-``repro.kernels.ssd_scan.ref.reference``), with an optional initial state.
+"""Plain PyTorch versions of the SSD-scan kernel, with an optional initial
+state.
 
-It keeps the reference's chunk rule (the largest ``L <= chunk`` that
-divides ``S``) and its order of work: the intra-chunk dual form, the
-per-chunk states, the inter-chunk recurrence over chunks, the inter-chunk
-output.  With ``init_state`` it is ``repro.models.ssm._ssd_chunked_core``.
+``reference`` is a port of ``repro.kernels.ssd_scan.ref.reference``.  It
+keeps the reference's chunk rule (the largest ``L <= chunk`` that divides
+``S``) and its order of work: the intra-chunk dual form, the per-chunk
+states, the inter-chunk recurrence over chunks, the inter-chunk output.
+With ``init_state`` it is ``repro.models.ssm._ssd_chunked_core``.
+
+``chunked_reference`` computes in the Hopper kernel's order instead: fixed
+chunks from the start with a ragged last one, the state carried chunk by
+chunk, and, when asked, the f32 operands of the tensor-core products
+rounded to bf16 as the kernel's bf16 body feeds them.
 """
 
 from __future__ import annotations
@@ -63,3 +69,58 @@ def reference(xs, dt, A, B_mat, C_mat, D, *, chunk: int = 64,
     y = (y_intra + y_inter).reshape(Bb, S, nh, hd)
     y = y + D.float()[None, None, :, None] * xs.float()
     return y, h
+
+
+def _bf16_terms(t: torch.Tensor, terms: int) -> torch.Tensor:
+    """``t`` as the sum of ``terms`` bf16 numbers, each the bf16 rounding
+    of what the earlier ones leave (1: bf16(t); 2: hi + bf16(t - hi))."""
+    out = torch.zeros_like(t)
+    for _ in range(terms):
+        out = out + (t - out).to(torch.bfloat16).float()
+    return out
+
+
+def chunked_reference(xs, dt, A, B_mat, C_mat, D, *, chunk: int = 64,
+                      split_operands: bool = False, terms: int = 2,
+                      init_state: Optional[torch.Tensor] = None):
+    """The SSD scan in the kernel's order: chunks of ``chunk`` rows from the
+    start, the last one ragged (padded with zero rows and dt = 0, which add
+    nothing), and per chunk, from the state h before it:
+    ``y = M x + exp(seg) (C h^T) + D x`` and ``h <- exp(total) h + (w x)^T
+    B``.  With ``split_operands`` the f32 operands M, h and ``w x`` of those
+    products enter as ``terms`` bf16 terms (the kernel's bf16 body feeds two,
+    hi and lo); x, B and C enter as given.  Shapes as in ``reference``;
+    returns (y [B, S, nh, hd], final state [B, nh, hd, ns]), both float32."""
+    Bb, S, nh, hd = xs.shape
+    ns = B_mat.shape[-1]
+    op = ((lambda t: _bf16_terms(t, terms)) if split_operands
+          else (lambda t: t))
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    xs_f = torch.nn.functional.pad(xs.float(), (0, 0, 0, 0, 0, pad))
+    dt_f = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad))
+    Bc = torch.nn.functional.pad(B_mat.float(), (0, 0, 0, pad))
+    Cc = torch.nn.functional.pad(C_mat.float(), (0, 0, 0, pad))
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=xs.device))[None, :, :, None]
+    h = (torch.zeros((Bb, nh, hd, ns), dtype=torch.float32,
+                     device=xs.device)
+         if init_state is None else init_state.float())
+    ys = []
+    for c in range(n):
+        rows = slice(c * chunk, (c + 1) * chunk)
+        x, d, Bm, Cm = xs_f[:, rows], dt_f[:, rows], Bc[:, rows], Cc[:, rows]
+        seg = torch.cumsum(d * A, dim=1)               # [B, L, nh]
+        total = seg[:, -1]                             # [B, nh]
+        G = torch.einsum("bis,bjs->bij", Cm, Bm)
+        diff = (seg[:, :, None, :] - seg[:, None, :, :]).masked_fill(
+            ~mask, float("-inf"))                      # exp only for j <= i
+        M = G[..., None] * torch.exp(diff) * d[:, None, :, :]
+        y_intra = torch.einsum("bijh,bjhp->bihp", op(M), x)
+        y_inter = torch.einsum("bis,bhps->bihp", Cm, op(h))
+        ys.append(y_intra + torch.exp(seg)[..., None] * y_inter
+                  + D.float()[None, None, :, None] * x)
+        wx = (torch.exp(total[:, None] - seg) * d)[..., None] * x
+        h = (torch.exp(total)[:, :, None, None] * h
+             + torch.einsum("bjhp,bjs->bhps", op(wx), Bm))
+    return torch.cat(ys, dim=1)[:, :S], h

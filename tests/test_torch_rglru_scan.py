@@ -143,3 +143,71 @@ def _bad(name):
 def test_wrapper_refuses_what_the_kernel_does_not_take(name):
     with pytest.raises(ValueError, match="rglru_scan"):
         ops.rglru_scan(*_bad(name))
+
+
+# The kernel's order on the CPU: ``chunked_reference`` is the two-pass scan
+# over n_chunks chunks of the sequence (super-chunks when the sequence is
+# longer than 16 rows a chunk), held against the JAX oracle and the
+# sequential plain version at the JAX test's bars, with chunk counts that
+# leave chunks empty (S < K) and that need several super-chunks.
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zeros", "h0"])
+@pytest.mark.parametrize("n_chunks", [1, 2, 3, 7, 16])
+@pytest.mark.parametrize("B,S,W", [(2, 64, 128), (1, 131, 256), (2, 5, 48)])
+def test_chunked_reference_matches_jax_and_sequential(B, S, W, n_chunks,
+                                                      with_h0):
+    a, bx = _inputs(B, S, W, seed=11)
+    h0 = _h0(B, W, seed=12) if with_h0 else None
+    hs, hf = ref.chunked_reference(
+        torch.from_numpy(a), torch.from_numpy(bx),
+        None if h0 is None else torch.from_numpy(h0), n_chunks=n_chunks)
+    jargs = [jnp.asarray(a), jnp.asarray(bx)]
+    if h0 is not None:
+        jargs.append(jnp.asarray(h0))
+    he, hfe = jreference(*jargs)
+    assert _err(hs, he) < TOL and _err(hf, hfe) < TOL
+    hq, hfq = ref.reference(torch.from_numpy(a), torch.from_numpy(bx),
+                            None if h0 is None else torch.from_numpy(h0))
+    assert _err(hs, hq) < TOL and _err(hf, hfq) < TOL
+
+
+@pytest.mark.parametrize("n_chunks", [1, 3, 16])
+@pytest.mark.parametrize("S", [128, 2048])
+def test_chunked_reference_near_one_decay(S, n_chunks):
+    a = np.full((1, S, 64), 0.9999, np.float32)
+    bx = np.full((1, S, 64), 1e-3, np.float32)
+    hs, hf = ref.chunked_reference(torch.from_numpy(a), torch.from_numpy(bx),
+                                   n_chunks=n_chunks)
+    assert torch.isfinite(hs).all() and torch.isfinite(hf).all()
+    he, _ = jreference(jnp.asarray(a), jnp.asarray(bx))
+    assert _err(hs, he) < NEAR_ONE_TOL
+
+
+@pytest.mark.parametrize("B,S,W,expect", [
+    (1, 131, 2560, 16),    # recurrentgemma-2b's prefill: 160 CTAs of 16
+    (1, 17, 2560, 2),      # a short prompt: chunks of at least 8 rows
+    (1, 1, 2560, 1),
+    (4, 131, 2560, 8),     # 640 CTAs fill the card with fewer chunks
+    (64, 131, 2560, 1),    # a large batch needs no split
+    (1, 2048, 2560, 32),   # a long prompt: the cap, 16 rows a chunk
+    (1, 2048, 64, 32),     # a narrow width: the cap
+])
+def test_wrapper_chunk_choice(B, S, W, expect):
+    assert ops.choose_chunks(B, S, W, 132) == expect
+
+
+@pytest.mark.parametrize("n_chunks", [1, 3, 16])
+def test_wrapper_runs_chunked_reference_when_forced_on_cpu(n_chunks):
+    a, bx = (torch.from_numpy(t) for t in _inputs(2, 45, 40, seed=13))
+    h0 = torch.from_numpy(_h0(2, 40, seed=14))
+    before = ops.rglru_scan.launches
+    hs, hf = ops.rglru_scan(a, bx, h0, n_chunks=n_chunks)
+    he, hfe = ref.chunked_reference(a, bx, h0, n_chunks=n_chunks)
+    assert torch.equal(hs, he) and torch.equal(hf, hfe)
+    assert ops.rglru_scan.launches == before
+
+
+@pytest.mark.parametrize("n_chunks", [0, 33, 2.0])
+def test_wrapper_refuses_chunk_counts_the_kernel_does_not_take(n_chunks):
+    a, bx = (torch.from_numpy(t) for t in _inputs(1, 8, 16, seed=15))
+    with pytest.raises(ValueError, match="rglru_scan"):
+        ops.rglru_scan(a, bx, n_chunks=n_chunks)

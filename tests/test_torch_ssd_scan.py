@@ -148,3 +148,68 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(name):
     args, kw = _bad(name)
     with pytest.raises(ValueError, match="ssd_scan"):
         ops.ssd_scan(*args, **kw)
+
+
+# The kernel's order on the CPU: ``chunked_reference`` walks fixed 64-row
+# chunks from the start (the ragged last one padded) and, with
+# ``split_operands``, feeds M, h and w x to its products as two bf16 terms,
+# as the Hopper kernel's bf16 body does.  Held against the JAX oracle at the
+# JAX kernel test's bar, on its cases and at mamba2-370m's full width, with
+# f32 x/B/C and with x/B/C rounded to bf16 (both packages get the rounded
+# numbers).
+FULL_WIDTH = (1, 131, 32, 64, 128, 256)
+
+
+def _bf16_rounded(arrs):
+    """x, B and C rounded to bf16 (kept as float32 numpy arrays)."""
+    out = list(arrs)
+    for i in (0, 3, 4):
+        out[i] = torch.from_numpy(out[i]).to(torch.bfloat16).float().numpy()
+    return out
+
+
+@pytest.mark.parametrize("rounded", [False, True], ids=["f32", "bf16_xbc"])
+@pytest.mark.parametrize("split", [False, True], ids=["f32_ops", "hi_lo"])
+@pytest.mark.parametrize("case", CASES + [FULL_WIDTH])
+def test_chunked_reference_matches_jax(case, split, rounded):
+    B, S, nh, hd, ns, chunk = case
+    arrs = _inputs(B, S, nh, hd, ns, seed=7)
+    if rounded:
+        arrs = _bf16_rounded(arrs)
+    y, st = ref.chunked_reference(*_t(arrs), chunk=64,
+                                  split_operands=split)
+    ye, ste = jreference(*map(jnp.asarray, arrs), chunk=chunk)
+    assert _err(y, ye) < TOL and _err(st, ste) < TOL
+
+
+@pytest.mark.parametrize("B,S,nh,hd,ns", [
+    (2, 100, 3, 16, 16),       # two chunks, the second ragged
+    (1, 131, 32, 64, 128),     # mamba2-370m's prefill of 131 rows
+])
+def test_chunked_reference_with_init_state_matches_chunked_core(B, S, nh, hd,
+                                                                ns):
+    arrs = _bf16_rounded(_inputs(B, S, nh, hd, ns, seed=8))
+    h0 = np.random.default_rng(9).standard_normal(
+        (B, nh, hd, ns)).astype(np.float32)
+    xs, dt, A, Bm, Cm, D = _t(arrs)
+    y, st = ref.chunked_reference(
+        xs.to(torch.bfloat16), dt, A, Bm.to(torch.bfloat16),
+        Cm.to(torch.bfloat16), D, chunk=64, split_operands=True,
+        init_state=torch.from_numpy(h0))
+    ye, ste = j_chunked_core(*map(jnp.asarray, arrs), 256,
+                             init_state=jnp.asarray(h0))
+    assert _err(y, ye) < TOL and _err(st, ste) < TOL
+
+
+def test_single_bf16_rounding_misses_the_bar():
+    """Why the kernel splits its f32 operands: fed as one bf16 rounding,
+    M, h and w x miss the 1e-4 bar at mamba2-370m's width; as hi + lo they
+    meet it."""
+    arrs = _bf16_rounded(_inputs(*FULL_WIDTH[:5], seed=10))
+    ye, ste = jreference(*map(jnp.asarray, arrs), chunk=256)
+    errs = {}
+    for terms in (1, 2):
+        y, st = ref.chunked_reference(*_t(arrs), chunk=64,
+                                      split_operands=True, terms=terms)
+        errs[terms] = max(_err(y, ye), _err(st, ste))
+    assert errs[1] > TOL > errs[2]
