@@ -23,21 +23,30 @@ exit code:
    body, f32 its CUDA-core body): Sq = Skv of 1, 63, 64, 65, 131, 200,
    1024 and 2048, causal and not, a window of 48 under a 200-row prompt, a
    cached prefill (37 queries, 256 slots of which the last 106 are -1) and
-   a softcap.  SSD scan: the JAX test's four
+   a softcap; Sq = 1 over a 512-row dense lane with 231 rows resident
+   (a dense lane's decode step after a bucketed prefill), at hd 64 and
+   256.  SSD scan: the JAX test's four
    cases and full-width mamba2-370m shapes (nh 32, hd 64, ns 128) at S =
    17, 131, 200 and 512, at the edges of the tensor-core body's 64-row
    chunks (S = 1, 63, 64, 65, 129) and at S = 2048, a batch of 4 with an
    odd head count at ns 8 (hd 64 and hd 8), and x/B/C one element past an
    aligned address, each with and without an initial state, xs/B/C in f32
-   (the CUDA-core body) and bf16 (the tensor-core body); 1e-4 on y and on
-   the final state.  RG-LRU scan: the JAX test's four cases at 1e-4, its
+   (the CUDA-core body) and bf16 (the tensor-core body); and as chunked
+   and bucketed prefill call it at mamba2's widths: 16-row chunks and a
+   final 7-row slice from a carried state, a 16-row final chunk whose last
+   9 rows have dt = 0, a 256-row bucket holding 131 real rows; 1e-4 on y
+   and on the final state.  RG-LRU scan: the JAX test's four cases at
+   1e-4, its
    near-one decay case at 1e-3 with finite outputs (also over 2048 rows),
    and full width (B 1, W 2560) at S = 17, 131 and 200, at the edges of the
    wrapper's super-chunks (S = 1, 128, 129, 512, 513), at S = 2048 and
    4096, at W 2500 (not a multiple of the 16-channel block), at B 4, and
    with forced chunk counts 1, 3 and 16, each with and without a random
-   initial state, 1e-4 on hs and h_final; each case also records whether
-   the kernel equals ``ref.chunked_reference`` bit for bit.
+   initial state, and a 16-row chunk from a carried state, a 16-row final
+   chunk whose last 9 rows are the scan's identity (a = 1, bx = 0) and a
+   256-row bucket holding 131 real rows; 1e-4 on hs and h_final; each case
+   also records whether the kernel equals ``ref.chunked_reference`` bit
+   for bit.
 4. kernel_timing — both attention kernels in bf16 at TinyLlama's and
    recurrentgemma's head shapes, and the scans at mamba2-370m's and
    recurrentgemma-2b's (the SSD kernel's bf16 body; the RG-LRU kernel with
@@ -65,15 +74,27 @@ exit code:
    at full width 18 RG-LRU-scan and 8 flash launches per prefill, 8 paged
    launches per decode step, no SSD launch, and no block, ring or state
    slot left in use.
-6. timing  — each trace in bf16: tokens/s, mean decode step and prefill,
-   peak memory, and a repeat under ``torch.profiler`` (device time by kernel
-   name, the device's busy share, and each port kernel's device time per
-   launch on the path, with the kernel functions it ran: mamba2's must be
-   the SSD kernel's tensor-core body only).
+6. serve_modes — after each path's ``serve``, the same trace (reduced
+   model first) in the engine's two other modes, in f32, each request
+   against phase ``serve``'s plain tokens under the same margin rule:
+   bucketed paged lanes with 16-row chunked prefill (the README's serving
+   example; n_ssd or n_rglru launches per chunk, i.e. 48 or 18 x the sum
+   of ceil(len / 16) over the prompts, no flash launch since a chunk's
+   attention is the plain gather, paged launches from the decode steps
+   only) and bucketed dense lanes (flash per attention layer and prefill
+   or lane decode step, no paged launch).
+7. timing  — each trace in bf16: tokens/s, mean decode step and prefill,
+   peak memory, the trace once more untraced in the chunked mode (tokens/s,
+   mean decode and chunk step), and a repeat under ``torch.profiler``
+   (device time by kernel name, the device's busy share, and each port
+   kernel's device time per launch on the path, with the kernel functions
+   it ran: mamba2's must be the SSD kernel's tensor-core body only).
 
 Then the ``{"kernels": [...]}`` summary line (paged and flash attention at
 TinyLlama's hd 64, with recurrentgemma's hd 256 beside them; every kernel
-with its long shape), the card's ``name, power.limit`` line, and last
+with its long shape; launches summed over every full-width run of phases
+``serve`` and ``serve_modes``, and by run), the card's ``name,
+power.limit`` line, and last
 ``{"ok": true, "device": ...}``.  The build phase also counts each kernel
 function's tensor-core instructions (``cuobjdump -sass``).  Bounds use the
 H100 SXM data-sheet peaks: 3.35 TB/s of device memory, 989 TFLOP/s of
@@ -105,6 +126,14 @@ N_SLOTS = 4
 BLOCK = 16
 STAGGER = 2
 MARGIN = 1e-3
+PAGED = {"paged": True}
+# the engine's other modes, run in phase serve_modes: the README's serving
+# example (bucketed paged lanes, 16-row chunks) and bucketed dense lanes
+SERVE_MODES = {
+    "paged_bucket_chunk": {"paged": True, "bucket_prompts": True,
+                           "prefill_chunk": 16},
+    "dense_bucket": {"paged": False, "bucket_prompts": True},
+}
 TOL = {("paged", "float32"): 1e-5, ("flash", "float32"): 2e-5,
        ("paged", "bfloat16"): 2e-2, ("flash", "bfloat16"): 2e-2,
        ("ssd", "float32"): 1e-4, ("ssd", "bfloat16"): 1e-4,
@@ -357,6 +386,10 @@ def phase_kernels(dev) -> dict:
         ("rg_prefill_200_window32", 1, 200, 200, 10, 1, 256, True, 32, 0.0,
          None),
         ("rg_decode_sq1", 1, 1, 512, 10, 1, 256, True, 2048, 0.0, 300),
+        # a dense lane's decode step after a bucketed prefill: the longest
+        # trace request's 200 + 31 rows resident, the rest empty
+        ("dense_lane_sq1", 1, 1, 512, 32, 4, 64, True, 0, 0.0, 231),
+        ("rg_dense_lane_sq1", 1, 1, 512, 10, 1, 256, True, 2048, 0.0, 231),
     ]
     # the tensor-core tiling: query lengths around and far past the 64-row
     # tile, causal and not, a window that cuts the prompt, a cached prefill
@@ -447,6 +480,30 @@ def phase_kernels(dev) -> dict:
                              "ok": err < tol})
                 if dname == "float32" and name.startswith("main"):
                     main_err["ssd_scan"] = max(main_err["ssd_scan"], err)
+        # chunked and bucketed prefill at mamba2's widths: 16-row chunks
+        # and a final 7-row slice from a carried state, a final chunk whose
+        # rows past the 7th are padding (dt = 0), and a 256-row bucket
+        # holding a 131-row prompt
+        for name, S, valid, seeded in (("chunk16", 16, 16, True),
+                                       ("slice7", 7, 7, True),
+                                       ("chunk16_valid7", 16, 7, True),
+                                       ("bucket256_valid131", 256, 131,
+                                        False)):
+            xs, dt, A, Bm, Cm, D = ssd_inputs(gen, dev, dtype, 1, S, 32, 64,
+                                              128)
+            dt[:, valid:] = 0.0
+            h0 = (torch.randn((1, 32, 64, 128), generator=gen, device=dev)
+                  if seeded else None)
+            y, st = ssd_ops.ssd_scan(xs, dt, A, Bm, Cm, D, init_state=h0)
+            torch.cuda.synchronize()
+            ye, ste = ssd_ref.reference(xs, dt, A, Bm, Cm, D, chunk=256,
+                                        init_state=h0)
+            err = max((y - ye).abs().max().item(),
+                      (st - ste).abs().max().item())
+            tol = TOL[("ssd", dname)]
+            rows.append({"kernel": "ssd_scan", "case": name, "dtype": dname,
+                         "init_state": seeded, "valid_rows": valid,
+                         "max_abs_err": err, "tol": tol, "ok": err < tol})
     rglru_cases = [
         # name, B, S, W, n_chunks (the JAX test's CASES first)
         ("jax_case0", 2, 64, 128, None), ("jax_case1", 1, 128, 256, None),
@@ -485,6 +542,30 @@ def phase_kernels(dev) -> dict:
                                                           n_chunks)})
             if name.startswith("main"):
                 main_err["rglru_scan"] = max(main_err["rglru_scan"], err)
+    # chunked and bucketed prefill at recurrentgemma's width: a 16-row
+    # chunk from a carried state, a final chunk whose rows past the 7th
+    # are the scan's identity (a = 1, bx = 0), and a 256-row bucket holding
+    # a 131-row prompt
+    for name, S, valid, seeded in (("chunk16", 16, 16, True),
+                                   ("chunk16_valid7", 16, 7, True),
+                                   ("bucket256_valid131", 256, 131, False)):
+        a, bx = rglru_inputs(gen, dev, 1, S, 2560)
+        a[:, valid:] = 1.0
+        bx[:, valid:] = 0.0
+        h0 = torch.randn((1, 2560), generator=gen, device=dev) \
+            if seeded else None
+        hs, hf = rglru_ops.rglru_scan(a, bx, h0)
+        torch.cuda.synchronize()
+        he, hfe = rglru_ref.reference(a, bx, h0)
+        err = max((hs - he).abs().max().item(),
+                  (hf - hfe).abs().max().item())
+        tol = TOL[("rglru", "float32")]
+        rows.append({"kernel": "rglru_scan", "case": name,
+                     "dtype": "float32", "init_state": seeded,
+                     "valid_rows": valid, "max_abs_err": err, "tol": tol,
+                     "ok": err < tol,
+                     "chunked_bitwise": rglru_bitwise(a, bx, h0, hs, hf,
+                                                      None)})
     # the JAX test's near-one decay: long memory must stay finite; also over
     # 2048 rows, where the chunks' incoming states carry it
     for S in (128, 2048):
@@ -516,19 +597,21 @@ def make_prompts(cfg, dev, seed: int) -> list:
                           device=dev).tolist() for n in PROMPT_LENS]
 
 
-def serve_trace(cfg, params, prompts, dev, dtype, max_new=MAX_NEW):
-    """Serve ``prompts`` through the paged kernel engine.  Returns (engine,
+def serve_trace(cfg, params, prompts, dev, dtype, max_new=MAX_NEW,
+                mode=PAGED):
+    """Serve ``prompts`` through the kernel engine in ``mode`` (the
+    engine's options; the paged mode by default).  Returns (engine,
     results); ``engine.ring_blocks_freed`` counts the window-ring blocks
     that fell behind the window during the run."""
     from repro_torch.serve import ContinuousEngine
     eng = ContinuousEngine(cfg, params, kv_len=KV_LEN, n_slots=N_SLOTS,
-                           block_size=BLOCK, paged=True, impl="kernel",
-                           dtype=dtype, device=dev)
+                           block_size=BLOCK, impl="kernel", dtype=dtype,
+                           device=dev, **mode)
     eng.ring_blocks_freed = 0
     slide = eng.allocator.extend_window
 
-    def counted_slide(slot, n_tokens_total):
-        fresh, freed = slide(slot, n_tokens_total)
+    def counted_slide(slot, n_tokens_total, **kw):
+        fresh, freed = slide(slot, n_tokens_total, **kw)
         eng.ring_blocks_freed += len(freed)
         return fresh, freed
 
@@ -545,21 +628,27 @@ def serve_trace(cfg, params, prompts, dev, dtype, max_new=MAX_NEW):
         del eng.allocator.extend_window
 
 
-def hold_against_plain(cfg, params, prompts, results, dev, dtype,
-                       max_new=MAX_NEW) -> list:
-    """Per request: the kernel engine's tokens against the plain B=1
-    engine's.  Identical, or at the first divergence the plain path's
-    top-two logit margin must be under MARGIN (a near tie that rounding
-    may flip either way)."""
+def plain_tokens(cfg, params, prompts, dev, dtype,
+                 max_new=MAX_NEW) -> list:
+    """Each request's tokens from the plain B=1 engine."""
     import torch
-    from repro_torch.models import lm
     from repro_torch.serve import Engine
     plain = Engine(cfg, params, kv_len=KV_LEN, dtype=dtype, impl="plain",
                    device=dev)
+    return [plain.generate(torch.tensor([p], device=dev),
+                           max_new)[0].tolist() for p in prompts]
+
+
+def hold_against_plain(cfg, params, prompts, results, refs, dev,
+                       max_new=MAX_NEW) -> list:
+    """Per request: the kernel engine's tokens against the plain B=1
+    engine's (``refs``).  Identical, or at the first divergence the plain
+    path's top-two logit margin must be under MARGIN (a near tie that
+    rounding may flip either way)."""
+    import torch
+    from repro_torch.models import lm
     rows = []
-    for rid, p in enumerate(prompts):
-        ref = plain.generate(torch.tensor([p], device=dev),
-                             max_new)[0].tolist()
+    for rid, (p, ref) in enumerate(zip(prompts, refs)):
         got = results[rid]
         check(len(got) == max_new, f"request {rid}: {len(got)} tokens")
         div = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b),
@@ -605,8 +694,9 @@ def phase_serve(dev, arch: str) -> dict:
     sprompts = make_prompts(small, dev, seed=8)[:4]
     seng, sres = serve_trace(small, sparams, sprompts, dev, torch.float32,
                              12)
-    srows = hold_against_plain(small, sparams, sprompts, sres, dev,
-                               torch.float32, 12)
+    srefs = plain_tokens(small, sparams, sprompts, dev, torch.float32, 12)
+    srows = hold_against_plain(small, sparams, sprompts, sres, srefs, dev,
+                               12)
     emit("serve_reduced", arch=small.name, requests=srows,
          window=small.window_size, ring_blocks_freed=seng.ring_blocks_freed)
     check(all(r["ok"] for r in srows), f"reduced model diverged: {srows}")
@@ -638,8 +728,8 @@ def phase_serve(dev, arch: str) -> dict:
               "flash_attention": n_attn * prefills,
               "ssd_scan": mixers.count("ssd") * prefills,
               "rglru_scan": mixers.count("rglru") * prefills}
-    rows = hold_against_plain(cfg, params, prompts, results, dev,
-                              torch.float32)
+    refs = plain_tokens(cfg, params, prompts, dev, torch.float32)
+    rows = hold_against_plain(cfg, params, prompts, results, refs, dev)
     emit("serve", arch=cfg.name, dtype="float32", params=n_params,
          init_seconds=init_s, requests=rows, prefills=prefills,
          decode_steps=decode_steps, launches=launches,
@@ -652,7 +742,90 @@ def phase_serve(dev, arch: str) -> dict:
     check(all(r["ok"] for r in rows), f"tokens diverged: {rows}")
     check_clean(eng)
     return {"params": params, "prompts": prompts, "launches": launches,
-            "cfg": cfg}
+            "cfg": cfg, "refs": refs, "small": (small, sparams, sprompts,
+                                                srefs)}
+
+
+def expected_mode_launches(cfg, mode: dict, tel) -> dict:
+    """Each kernel's launches in one run of ``mode``, from the trace as the
+    telemetry saw it.  Chunked prefill: one SSD or RG-LRU launch per
+    recurrent layer and chunk, no flash launch (the chunk's attention is
+    the plain gather), paged launches from the decode steps only.  Dense
+    lanes: flash per attention layer and prefill or lane decode step, no
+    paged launch, one scan launch per recurrent layer and prefill."""
+    mixers = [s.mixer for s in cfg.layers()]
+    n_attn = sum(1 for m in mixers if m in ("global", "local"))
+    chunks = sum(s.prefill_chunks for s in tel.steps)
+    prefills = sum(s.prefills for s in tel.steps)
+    decode_steps = sum(1 for s in tel.steps if s.active_slots)
+    lane_steps = sum(len(s.active_slots) for s in tel.steps)
+    if mode.get("prefill_chunk"):
+        return {"paged_attention": n_attn * decode_steps,
+                "flash_attention": 0,
+                "ssd_scan": mixers.count("ssd") * chunks,
+                "rglru_scan": mixers.count("rglru") * chunks}
+    return {"paged_attention": 0,
+            "flash_attention": n_attn * (prefills + lane_steps),
+            "ssd_scan": mixers.count("ssd") * prefills,
+            "rglru_scan": mixers.count("rglru") * prefills}
+
+
+def phase_serve_modes(dev, served: dict) -> dict:
+    """The path's trace in the engine's other modes, in f32: chunked
+    prefill of 16-row chunks over bucketed paged lanes (the README's
+    serving example) and bucketed dense lanes, each on the reduced model
+    first and then at full width with every launch counter zeroed just
+    before the run and read just after; each request against the plain
+    B=1 engine's tokens of phase ``serve`` under the same margin rule, the
+    launch counts against ``expected_mode_launches``.  Returns {mode:
+    launches}."""
+    import torch
+    cfg, params, prompts = served["cfg"], served["params"], served["prompts"]
+    # popped: the reduced model's weights must not count in the peak
+    # memory of phase timing
+    small, sparams, sprompts, srefs = served.pop("small")
+    counters = launch_counters()
+    out = {}
+    for name, mode in SERVE_MODES.items():
+        seng, sres = serve_trace(small, sparams, sprompts, dev,
+                                 torch.float32, 12, mode)
+        srows = hold_against_plain(small, sparams, sprompts, sres, srefs,
+                                   dev, 12)
+        check(all(r["ok"] for r in srows),
+              f"reduced model diverged in {name}: {srows}")
+        check_clean(seng)
+
+        for fn in counters.values():
+            fn.launches = 0
+        eng, results = serve_trace(cfg, params, prompts, dev, torch.float32,
+                                   mode=mode)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        tel = eng.telemetry
+        expect = expected_mode_launches(cfg, mode, tel)
+        chunks = sum(s.prefill_chunks for s in tel.steps)
+        lane_steps = sum(len(s.active_slots) for s in tel.steps)
+        rows = hold_against_plain(cfg, params, prompts, results,
+                                  served["refs"], dev)
+        emit("serve_modes", arch=cfg.name, mode=name, options=mode,
+             dtype="float32", reduced_requests=srows, requests=rows,
+             prefills=sum(s.prefills for s in tel.steps),
+             prefill_chunks=chunks, lane_decode_steps=lane_steps,
+             launches=launches, expected_launches=expect,
+             ring_blocks_freed=eng.ring_blocks_freed,
+             reduced_ring_blocks_freed=seng.ring_blocks_freed)
+        if mode.get("prefill_chunk"):
+            C = mode["prefill_chunk"]
+            check(chunks == sum(-(-len(p) // C) for p in prompts),
+                  f"{chunks} chunks")
+        else:
+            check(lane_steps == len(prompts) * (MAX_NEW - 1),
+                  f"{lane_steps} lane decode steps")
+        check(launches == expect,
+              f"{name}: launches {launches} != expected {expect}")
+        check(all(r["ok"] for r in rows), f"{name}: tokens diverged: {rows}")
+        check_clean(eng)
+        out[name] = launches
+    return out
 
 
 def check_clean(eng) -> None:
@@ -753,8 +926,32 @@ def time_serve(dev, served: dict) -> tuple:
              "mean_prefill_ms": tel.mean_prefill_ms(),
              "max_memory_allocated_bytes":
                  torch.cuda.max_memory_allocated(dev)}
+    serve["paged_bucket_chunk"] = time_mode(
+        cfg, params, prompts, dev, SERVE_MODES["paged_bucket_chunk"])
     serve["profile"] = profile_serve(cfg, params, prompts, dev, wall)
     return serve, params
+
+
+def time_mode(cfg, params, prompts, dev, mode: dict) -> dict:
+    """The bf16 trace once in ``mode``, untraced, after a short warm-up in
+    the same mode: tokens/s, mean decode step, mean chunk step and mean
+    prefill per prompt (all its chunks)."""
+    import torch
+    serve_trace(cfg, params, prompts[:2], dev, torch.bfloat16, 4, mode)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng, results = serve_trace(cfg, params, prompts, dev, torch.bfloat16,
+                               mode=mode)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tel = eng.telemetry
+    n_tokens = sum(len(v) for v in results.values())
+    return {"options": mode, "tokens": n_tokens, "wall_seconds": wall,
+            "tokens_per_s": n_tokens / wall,
+            "mean_decode_step_ms": tel.mean_decode_step_ms(),
+            "mean_chunk_ms": tel.mean_chunk_ms(),
+            "chunks": tel.prefill_chunks(),
+            "mean_prefill_ms": tel.mean_prefill_ms()}
 
 
 def set_bound(row: dict, flops_per_s: float) -> dict:
@@ -1064,21 +1261,19 @@ def main() -> int:
         timing.update(measured["scans"])
         # one path after the other, so that neither path's weights count
         # in the other's peak memory
-        phase = "serve"
-        served = phase_serve(dev, ARCH)
-        phase = "timing"
-        phase_timing(dev, served)
-        phase = "serve"
-        served_ssm = phase_serve(dev, SSM_ARCH)
-        phase = "timing"
-        phase_timing_ssm(dev, served_ssm)
-        phase = "serve"
-        served_rg = phase_serve(dev, RG_ARCH)
-        phase = "timing"
-        phase_timing_rg(dev, served_rg)
-        # each kernel's launches over the main paths' runs, and by path
-        by_path = {s["cfg"].name: s["launches"]
-                   for s in (served, served_ssm, served_rg)}
+        by_path = {}
+        for arch, timing_phase in ((ARCH, phase_timing),
+                                   (SSM_ARCH, phase_timing_ssm),
+                                   (RG_ARCH, phase_timing_rg)):
+            phase = "serve"
+            served = phase_serve(dev, arch)
+            by_path[arch] = served["launches"]
+            phase = "serve_modes"
+            for mode, counts in phase_serve_modes(dev, served).items():
+                by_path[f"{arch}/{mode}"] = counts
+            phase = "timing"
+            timing_phase(dev, served)
+        # each kernel's launches over the paths' runs, and by path
         launches = {name: sum(p[name] for p in by_path.values())
                     for name in launch_counters()}
     except Exception as exc:  # report which phase failed, then fail

@@ -1,11 +1,16 @@
 """Serving launcher of the port: static batch, or continuous batching over
-the paged KV cache (window block rings for sliding-window layers, and
-per-lane recurrent state slabs for mamba2's and recurrentgemma's
-recurrent layers).
+dense per-slot lanes or the paged KV cache (window block rings for
+sliding-window layers, and per-lane recurrent state slabs for mamba2's and
+recurrentgemma's recurrent layers), with whole, bucketed (``--bucket``) or
+chunked (``--chunk-prefill C``, paged only) prefill.
 
 Usage (on the CUDA card; ``--device cpu`` runs the plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --continuous --paged
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        --continuous --paged --bucket --chunk-prefill 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+        --continuous --bucket
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --continuous --paged
     PYTHONPATH=src python -m repro_torch.launch.serve \
@@ -60,6 +65,8 @@ def _static(args, cfg, params, gen, device, dtype):
 def _continuous(args, cfg, params, gen, device, dtype):
     eng = ContinuousEngine(cfg, params, kv_len=args.kv_len,
                            n_slots=args.batch, paged=args.paged,
+                           bucket_prompts=args.bucket,
+                           prefill_chunk=args.chunk_prefill,
                            dtype=dtype, device=device)
     for i in range(args.requests):
         prompt = torch.randint(0, cfg.vocab_size, (args.prompt_len,),
@@ -77,17 +84,23 @@ def _continuous(args, cfg, params, gen, device, dtype):
           f"cache_pressure={tel.cache_pressure():.2f} "
           f"peak={tel.peak_cache_pressure():.2f} "
           f"prefill={tel.mean_prefill_ms():.1f}ms "
+          f"chunk={tel.mean_chunk_ms():.1f}ms "
+          f"chunks={tel.prefill_chunks()} "
           f"decode_step={tel.mean_decode_step_ms():.1f}ms "
           f"slot_reuse={eng.scheduler.max_slot_reuse()}")
-    by_group = " ".join(f"{g}={b / 1024:.0f}KiB" for g, b in
-                        tel.peak_resident_bytes_by_group().items())
-    print(f"[serve-cb] paged: peak_resident="
-          f"{tel.peak_resident_bytes() / 1024:.0f}KiB / "
-          f"{eng.allocator.capacity_bytes() / 1024:.0f}KiB "
-          f"({len(eng.allocator.stores)} layer pools, "
-          f"block_size={eng.block_size}, "
-          f"{eng.allocator.layout.state_slots} state slots) "
-          f"peak by group: {by_group}")
+    if not args.paged:
+        print(f"[serve-cb] dense lanes: {eng.n_slots} per-slot caches of "
+              f"kv_len {eng.kv_len}")
+    else:
+        by_group = " ".join(f"{g}={b / 1024:.0f}KiB" for g, b in
+                            tel.peak_resident_bytes_by_group().items())
+        print(f"[serve-cb] paged: peak_resident="
+              f"{tel.peak_resident_bytes() / 1024:.0f}KiB / "
+              f"{eng.allocator.capacity_bytes() / 1024:.0f}KiB "
+              f"({len(eng.allocator.stores)} layer pools, "
+              f"block_size={eng.block_size}, "
+              f"{eng.allocator.layout.state_slots} state slots) "
+              f"peak by group: {by_group}")
     if results:
         print("first request:", results[0])
 
@@ -105,8 +118,15 @@ def main(argv=None):
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching (slot scheduler + paged cache)")
     ap.add_argument("--paged", action="store_true",
-                    help="continuous: physical paged cache (the only "
-                         "continuous mode ported so far)")
+                    help="continuous: physical paged cache (block-table "
+                         "decode; global tables / window rings / recurrent "
+                         "state slots)")
+    ap.add_argument("--bucket", action="store_true",
+                    help="continuous: pad prefills to power-of-two buckets "
+                         "(a bounded set of prefill shapes)")
+    ap.add_argument("--chunk-prefill", type=int, default=0, metavar="C",
+                    help="continuous+paged: prefill prompts in C-token "
+                         "chunks interleaved with decode")
     ap.add_argument("--requests", type=int, default=8,
                     help="continuous: number of requests in the trace")
     ap.add_argument("--stagger", type=int, default=2,
@@ -117,8 +137,6 @@ def main(argv=None):
                     help="parameter and cache type (default: float32 with "
                          "--reduced, else bfloat16)")
     args = ap.parse_args(argv)
-    if args.continuous and not args.paged:
-        ap.error("--continuous needs --paged: dense lanes are not ported")
 
     cfg = configs.get(args.arch)
     if args.reduced:

@@ -204,7 +204,8 @@ def paged_write(k_pages, v_pages, tables, positions, k, v) -> tuple:
 def attn_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *, local: bool,
                positions: torch.Tensor, cache: Optional[dict] = None,
                impl: str = "kernel",
-               paged_tables: Optional[torch.Tensor] = None) -> tuple:
+               paged_tables: Optional[torch.Tensor] = None,
+               valid_len: Optional[int] = None) -> tuple:
     """Pre-norm attention block, global or (``local``) sliding-window over
     ``cfg.window_size``.  Returns (residual output, cache).
 
@@ -213,10 +214,17 @@ def attn_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *, local: bool,
     Paged decode (cache holds ``k_pages``/``v_pages``, ``paged_tables`` is
     [B, max_blocks]): x is [B, 1, D] and ``positions`` = [B] per-lane
     positions; each lane's row is written through its table, then the
-    paged kernel attends over the lane's resident rows.  A local layer's
-    table is its lane's window ring (entries behind the window are the
-    null page) and the window mask keeps rows behind ``pos - window``
-    out."""
+    paged kernel attends over the lane's resident rows.  Paged chunk
+    prefill: x is [1, C, D] and ``positions`` = [C], the chunk's rows of
+    one lane; they are written through its table (rows past the table's
+    reach to the null page), then the plain gather
+    (``paged_attention.ref.reference``) attends causally over everything
+    resident, as the reference does: no kernel computes a multi-row paged
+    read.  A local layer's table is its lane's window ring (entries behind
+    the window are the null page) and the window mask keeps rows behind
+    ``pos - window`` out.  ``valid_len`` (dense prefill only): rows at
+    positions >= ``valid_len`` are padding and never displace real rows of
+    a window ring."""
     B, S, _ = x.shape
     window = cfg.window_size if local else 0
     h = rms_norm(x, p["ln"], cfg.norm_eps)
@@ -228,25 +236,28 @@ def attn_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *, local: bool,
     if cache is not None and "k_pages" in cache:
         if paged_tables is None:
             raise ValueError("a paged cache needs block tables")
-        if S != 1:
-            raise NotImplementedError(
-                "multi-row paged prefill is not ported yet")
-        pos = positions.reshape(-1)                           # [B]
-        q = apply_rope(q, pos[:, None], cfg.rope_theta)
-        k = apply_rope(k, pos[:, None], cfg.rope_theta)
+        pos = positions.reshape(-1)              # [B] decode, [C] chunk
+        rope_pos = pos[:, None] if S == 1 else pos
+        q = apply_rope(q, rope_pos, cfg.rope_theta)
+        k = apply_rope(k, rope_pos, cfg.rope_theta)
         paged_write(cache["k_pages"], cache["v_pages"], paged_tables, pos,
                     k, v)
-        ctx = pos + 1                  # resident incl. the token just written
-        if impl == "kernel":
+        if S == 1:
+            ctx = pos + 1              # resident incl. the token just written
+            q_pos = pos[:, None]
+        else:                          # one lane's chunk: its last row's
+            ctx = pos[-1:] + 1         # context, each row its own position
+            q_pos = pos[None]
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        if S == 1 and impl == "kernel":
             o = pa_ops.paged_attention(
                 q[:, 0], cache["k_pages"], cache["v_pages"], paged_tables,
                 ctx, logit_softcap=cap, window=window)[:, None]
-        elif impl == "plain":
+        else:
             o = pa_ref.reference(
                 q, cache["k_pages"], cache["v_pages"], paged_tables, ctx,
-                q_positions=pos[:, None], logit_softcap=cap, window=window)
-        else:
-            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+                q_positions=q_pos, logit_softcap=cap, window=window)
     elif cache is None or S > 1:       # no cache, or prefill filling one
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -254,7 +265,7 @@ def attn_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *, local: bool,
                       causal=True, window=window, logit_softcap=cap,
                       impl=impl)
         if cache is not None:
-            _prefill_cache(cache, k, v, positions, window)
+            _prefill_cache(cache, k, v, positions, window, valid_len)
     else:                              # dense decode step
         pos = positions.reshape(())
         q = apply_rope(q, pos[None], cfg.rope_theta)
@@ -274,23 +285,40 @@ def attn_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *, local: bool,
     return x + out, cache
 
 
-def _prefill_cache(cache: dict, k, v, positions, window: int = 0) -> dict:
+def _prefill_cache(cache: dict, k, v, positions, window: int = 0,
+                   valid_len: Optional[int] = None) -> dict:
     """The prompt's rows into the dense cache, in place.  Global layers,
     and window layers whose prompt fits: the rows (the last ``size`` of
-    them when the prompt is longer than the cache) fill slots 0..  A
-    window layer's longer prompt: its last ``size`` rows go to their ring
-    slots, position % size."""
+    them when the prompt is longer than the cache) fill slots 0.. (a
+    bucketed prompt's pad rows land in slots of their own, which
+    ``lm.mask_cache_positions`` then marks empty).  A window layer's
+    longer prompt: its last ``size`` real rows go to their ring slots,
+    position % size; with ``valid_len`` the real rows end there, and where
+    the ``size``-row slice still holds pad rows (a short prompt) the slots
+    keep what they held: a pad row at position p would alias the slot of
+    p - size."""
     size = cache["k"].shape[1]
-    if not window or k.shape[1] <= size:
-        n = min(k.shape[1], size)
+    S = k.shape[1]
+    if not window or S <= size:
+        n = min(S, size)
         cache["k"][:, :n] = k[:, -n:]
         cache["v"][:, :n] = v[:, -n:]
         cache["pos"][:n] = positions[-n:].to(torch.int32)
         return cache
-    tail_pos = positions[-size:].to(torch.int32)
+    start = S - size if valid_len is None else \
+        min(max(valid_len - size, 0), S - size)
+    tail_k, tail_v = k[:, start:start + size], v[:, start:start + size]
+    tail_pos = positions[start:start + size].to(torch.int32)
     slots = torch.remainder(tail_pos, size).long()
-    cache["k"][:, slots] = k[:, -size:]
-    cache["v"][:, slots] = v[:, -size:]
+    if valid_len is not None:
+        keep = tail_pos < valid_len
+        tail_k = torch.where(keep[None, :, None, None], tail_k,
+                             cache["k"][:, slots])
+        tail_v = torch.where(keep[None, :, None, None], tail_v,
+                             cache["v"][:, slots])
+        tail_pos = torch.where(keep, tail_pos, cache["pos"][slots])
+    cache["k"][:, slots] = tail_k
+    cache["v"][:, slots] = tail_v
     cache["pos"][slots] = tail_pos
     return cache
 

@@ -1,7 +1,8 @@
 """Model assembly for decoder-only archs built of global- or
 sliding-window-attention layers with a dense FFN, Mamba-2 SSD layers and
-RG-LRU layers with a dense FFN: parameter init, caches (dense and paged)
-and ``forward`` in prefill and decode modes.
+RG-LRU layers with a dense FFN: parameter init, caches (dense, per-slot
+dense lanes and paged) and ``forward`` in prefill, chunk-prefill and
+decode modes.
 
 A port of the matching subset of ``repro.models.lm``.  Parameters and
 caches keep the reference's tree — ``seg{i}/c{j}/{attn,ffn,ssd,rglru}/...``
@@ -10,6 +11,10 @@ that axis with a Python loop where the reference scans.  Cache writes
 happen in place (see ``blocks``); recurrent (SSD, RG-LRU) layers return
 their new conv tail and state, and this module writes them into the cache
 tree (or, in a paged decode step, hands them to ``freeze_state_lanes``).
+The reference's functional lane updates (``write_slot_cache``,
+``lane_view``/``lane_merge``, ``write_state_lanes``) become views and
+in-place writes: a forward through a ``lane_view`` or a ``slot_cache``
+writes the lane itself, so nothing needs merging back.
 """
 
 from __future__ import annotations
@@ -133,6 +138,37 @@ def init_cache(cfg: ModelConfig, batch: int, kv_len: int,
         for si, seg in enumerate(cfg.segments())}
 
 
+def init_slot_caches(cfg: ModelConfig, n_slots: int, kv_len: int,
+                     dtype=torch.bfloat16, device=None) -> dict:
+    """Per-slot dense caches of dense-lane continuous batching: every leaf
+    of the single-request cache (``init_cache(cfg, 1, kv_len)``) gains a
+    leading slot axis, so each lane is an independent single-request
+    cache with its own ``pos`` rows.  ``slot_cache`` gives one lane."""
+    single = init_cache(cfg, 1, kv_len, dtype, device)
+    return _tree_map(lambda t: t.expand((n_slots,) + t.shape).clone(),
+                     single)
+
+
+def slot_cache(caches: dict, slot: int) -> dict:
+    """Lane ``slot`` of ``init_slot_caches`` output: a single-request cache
+    of views, so a forward that writes it writes the lane in place."""
+    return _index(caches, slot)
+
+
+def write_slot_cache(caches: dict, single: dict, slot: int) -> dict:
+    """Copy a single-request cache into lane ``slot``, in place; the whole
+    lane is replaced, so a new request never sees its predecessor's rows
+    or state.  Returns ``caches``."""
+    _tree_map(lambda full, one: full[slot].copy_(one), caches, single)
+    return caches
+
+
+def _tree_map(fn, tree: dict, *rest: dict) -> dict:
+    return {k: _tree_map(fn, v, *(r[k] for r in rest))
+            if isinstance(v, dict) else fn(v, *(r[k] for r in rest))
+            for k, v in tree.items()}
+
+
 def serve_groups(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     """Per-layer serving report: cache group -> layer indices ("paged":
     global attention behind growing block tables; "window": sliding-window
@@ -211,6 +247,48 @@ def _scatter_state(full: dict, one: dict, slot: int) -> None:
     place."""
     for k, t in full.items():
         t[:, slot].copy_(one[k][:, 0])
+
+
+def lane_view(cfg: ModelConfig, caches: dict, slot: int) -> dict:
+    """Chunk-prefill view of the paged tree for one lane: recurrent state
+    leaves narrowed to lane ``slot`` (batch 1, views, so the forward's
+    state write-back carries the lane's scan state from chunk to chunk in
+    place); pool leaves pass through whole."""
+    out: dict = {}
+    for si, seg in enumerate(cfg.segments()):
+        out[f"seg{si}"] = seg_view = {}
+        for ci, spec in enumerate(seg.cycle):
+            entry = caches[f"seg{si}"][f"c{ci}"]
+            if spec.mixer in _STATE_MIXERS:
+                entry = {**entry, spec.mixer: {
+                    k: t[:, slot:slot + 1]
+                    for k, t in entry[spec.mixer].items()}}
+            seg_view[f"c{ci}"] = entry
+    return out
+
+
+def zero_state_lane(cfg: ModelConfig, caches: dict, slot: int) -> dict:
+    """Zero lane ``slot``'s recurrent state leaves in the paged tree, in
+    place (the reference writes a zeroed single-request cache into the
+    lane with ``write_state_lanes``): a reused lane's state is reset before
+    chunked prefill starts carrying state into it.  Returns ``caches``."""
+    for leaf in state_cache_leaves(cfg, caches):
+        for t in leaf.values():
+            t[:, slot].zero_()
+    return caches
+
+
+def mask_cache_positions(cache: dict, true_len: int) -> dict:
+    """Mark every dense-cache slot holding a position ``>= true_len`` empty
+    (-1), in place: after a bucketed prefill the pad rows' K/V can never
+    be attended.  Recurrent state needs no masking: the forward's
+    ``valid_len`` froze it at the real prompt.  Returns ``cache``."""
+    for key, val in cache.items():
+        if key == "pos":
+            val.masked_fill_(val >= true_len, -1)
+        elif isinstance(val, dict):
+            mask_cache_positions(val, true_len)
+    return cache
 
 
 def freeze_state_lanes(cfg: ModelConfig, caches: dict, updates: dict,
@@ -294,13 +372,14 @@ def _index(tree: dict, r: int) -> dict:
 def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, h, *,
                  positions, cache: Optional[dict], impl: str,
                  paged_tables=None, window_tables=None, key: tuple = (),
-                 state_sink: Optional[StateSink] = None):
+                 state_sink: Optional[StateSink] = None, valid_len=None):
     """One layer (global or sliding-window attention, SSD or RG-LRU, then
     its FFN); returns the new residual."""
     if spec.mixer in _STATE_MIXERS:
         layer = ssm.ssd_layer if spec.mixer == "ssd" else rglru.rglru_layer
         sc = cache[spec.mixer] if cache else None
-        h, new = layer(cfg, p[spec.mixer], h, cache=sc, impl=impl)
+        h, new = layer(cfg, p[spec.mixer], h, cache=sc, impl=impl,
+                       valid_len=valid_len)
         if new is not None:
             if state_sink is not None and h.shape[1] == 1:
                 state_sink(key, new)
@@ -314,7 +393,8 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, h, *,
                                  cache=cache["attn"] if cache else None,
                                  impl=impl,
                                  paged_tables=(window_tables if local
-                                               else paged_tables))
+                                               else paged_tables),
+                                 valid_len=valid_len)
     if spec.ffn == "dense":
         h = blocks.ffn_layer(cfg, p["ffn"], h)
     return h
@@ -323,7 +403,7 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, h, *,
 def _run_segment(cfg: ModelConfig, si: int, seg: Segment, seg_p: dict, h,
                  *, positions, seg_cache, impl: str, paged_tables=None,
                  window_tables=None,
-                 state_sink: Optional[StateSink] = None):
+                 state_sink: Optional[StateSink] = None, valid_len=None):
     for r in range(seg.repeats):
         for ci, spec in enumerate(seg.cycle):
             lc = _index(seg_cache[f"c{ci}"], r) if seg_cache else None
@@ -331,7 +411,7 @@ def _run_segment(cfg: ModelConfig, si: int, seg: Segment, seg_p: dict, h,
                              positions=positions, cache=lc, impl=impl,
                              paged_tables=paged_tables,
                              window_tables=window_tables, key=(si, ci, r),
-                             state_sink=state_sink)
+                             state_sink=state_sink, valid_len=valid_len)
     return h
 
 
@@ -341,7 +421,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             impl: str = "kernel",
             paged_tables: Optional[torch.Tensor] = None,
             window_tables: Optional[torch.Tensor] = None,
-            state_sink: Optional[StateSink] = None) -> tuple:
+            state_sink: Optional[StateSink] = None,
+            valid_len: Optional[int] = None) -> tuple:
     """Returns (logits [B, S, padded_vocab], cache).
 
     tokens: [B, S] (decode: [B, 1]).  positions: [S] int32 absolute
@@ -353,7 +434,14 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     updated in place and returned.  ``state_sink(key,
     leaves)``, when given, receives each recurrent layer's new decode state
     instead of the cache (``key`` = (segment, cycle entry, repeat)): a
-    paged decode step passes it on to ``freeze_state_lanes``."""
+    paged decode step passes it on to ``freeze_state_lanes``.
+
+    Paged chunk prefill: tokens [1, C], positions the chunk's [C] rows,
+    ``paged_tables``/``window_tables`` the lane's [1, max_blocks] rows and
+    ``cache`` a ``lane_view``.  ``valid_len`` (prefill only): rows at or
+    past it are padding (a bucketed prompt's tail, a final chunk's); they
+    never displace real window-ring rows and the recurrent state freezes
+    past them."""
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
     _check_supported(cfg)
@@ -372,7 +460,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                          seg_cache=cache[f"seg{si}"] if cache else None,
                          impl=impl, paged_tables=paged_tables,
                          window_tables=window_tables,
-                         state_sink=state_sink)
+                         state_sink=state_sink, valid_len=valid_len)
 
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]

@@ -96,14 +96,16 @@ def _lru_scan(a: torch.Tensor, bx: torch.Tensor,
 
 
 def rglru_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
-                cache: Optional[dict] = None,
-                impl: str = "kernel") -> tuple:
+                cache: Optional[dict] = None, impl: str = "kernel",
+                valid_len: Optional[int] = None) -> tuple:
     """Returns (residual output, new cache leaves or None).
 
     Prefill with a cache continues from the cache's recurrence and conv
     state (zeros for a fresh cache) and returns the new conv tail and final
     state; with a cache and a single row it takes the recurrent decode
-    step."""
+    step.  ``valid_len`` (prefill only) freezes the recurrence past that
+    many rows: pad rows get (a, bx) = (1, 0), the scan's identity, and the
+    conv tail is read from the last real rows."""
     B, S, _ = x.shape
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
@@ -124,7 +126,9 @@ def rglru_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         if cache is not None:
             pad = cfg.lru_block_width - 1
             full = torch.cat([conv_state.to(x.dtype), xb], dim=1)
-            new_conv = full[:, -pad:]
+            # the last ``pad`` real rows: positions [end - pad, end)
+            end = S if valid_len is None else valid_len
+            new_conv = full[:, end:end + pad]
 
     r = torch.sigmoid((xc @ p["w_rg"]).float())
     i = torch.sigmoid((xc @ p["w_ig"]).float())
@@ -133,6 +137,11 @@ def rglru_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     # sqrt(1 - a^2) with a numerical floor
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     bx = beta * i * xc.float()
+
+    if not decode and valid_len is not None and S > 1:
+        real = torch.arange(S, device=a.device)[None, :, None] < valid_len
+        a = torch.where(real, a, 1.0)        # (1, 0), the scan's identity:
+        bx = torch.where(real, bx, 0.0)      # pad rows pass the state on
 
     if decode:
         state = a[:, 0] * h0 + bx[:, 0]

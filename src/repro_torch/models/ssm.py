@@ -92,14 +92,18 @@ def _ssd_chunked_core(xs, dt, A, B_mat, C_mat, D, chunk: int,
 
 
 def ssd_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
-              cache: Optional[dict] = None,
-              impl: str = "kernel") -> tuple:
+              cache: Optional[dict] = None, impl: str = "kernel",
+              valid_len: Optional[int] = None) -> tuple:
     """Full Mamba-2 block: in_proj -> conv -> SSD -> gated norm ->
     out_proj.  Returns (residual output, new cache leaves or None).
 
     Prefill with a cache continues from the cache's conv tail and state
     (zeros for a fresh cache) and returns the new tail and final state;
-    with a cache and a single row it takes the recurrent decode step."""
+    with a cache and a single row it takes the recurrent decode step.
+    ``valid_len`` (prefill only) freezes the recurrence past that many
+    rows: pad rows (a bucketed prompt's tail, a final prefill chunk's) get
+    dt = 0, so they neither decay nor feed the state, and the conv tail is
+    read from the last real rows."""
     B, S, _ = x.shape
     di, ns = cfg.d_inner, cfg.ssm_state
     nh, hd = cfg.ssm_heads, cfg.ssm_head_dim
@@ -120,6 +124,9 @@ def ssd_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     xs, B_mat, C_mat = torch.split(xBC, [di, ns, ns], dim=-1)
     xs = xs.reshape(B, S, nh, hd)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    if valid_len is not None:
+        real = torch.arange(S, device=dt.device)[None, :, None] < valid_len
+        dt = torch.where(real, dt, 0.0)
     A = -torch.exp(p["A_log"])
 
     if impl == "kernel":
@@ -140,7 +147,9 @@ def ssd_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     if cache is not None:  # raw-conv-input tail + final state
         pad = cfg.d_conv - 1
         full = torch.cat([conv_state.to(x.dtype), xBC_raw], dim=1)
-        new_cache = {"conv": full[:, -pad:], "state": final_state}
+        # the last ``pad`` real rows: positions [end - pad, end)
+        end = S if valid_len is None else valid_len
+        new_cache = {"conv": full[:, end:end + pad], "state": final_state}
     return x + out, new_cache
 
 

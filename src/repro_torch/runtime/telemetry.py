@@ -2,7 +2,8 @@
 that the continuous-batching engine records each step (slot occupancy,
 block-pool pressure, residency overall and by cache group, emitted
 tokens, step time), plus the split of each step's host-clock time into
-its prefill and decode parts.
+its prefill and decode parts, and the chunk steps' share of the prefill
+part.
 
 The engine reads a token back to the host at the end of every prefill and
 every decode step, which waits for the device, so these host-clock times
@@ -27,13 +28,15 @@ class ServeStep:
     blocks_in_use: int
     n_blocks: int
     prefills: int = 0            # prefills completed (one token each)
+    prefill_chunks: int = 0      # chunked-prefill work units this step
     new_tokens: int = 0          # decode tokens emitted
     resident_bytes: int = 0
     capacity_bytes: int = 0
     # residency by cache group: {"global"/"window"/"recurrent": bytes}
     resident_by_group: dict = field(default_factory=dict)
-    prefill_seconds: float = 0.0
+    prefill_seconds: float = 0.0  # admissions, whole prefills, chunks
     decode_seconds: float = 0.0
+    chunk_seconds: float = 0.0    # the chunk steps alone
 
 
 @dataclass
@@ -54,23 +57,31 @@ class ServeTelemetry:
         self._peak_group_bytes: dict = {}
         self._prefills = 0
         self._prefill_seconds = 0.0
+        self._chunks = 0
+        self._chunk_seconds = 0.0
         self._decode_steps = 0
         self._decode_seconds = 0.0
 
     def record_step(self, step: int, seconds: float, active_slots,
                     n_slots: int, blocks_in_use: int, n_blocks: int,
-                    prefills: int = 0, new_tokens: int = 0,
+                    prefills: int = 0, prefill_chunks: int = 0,
+                    new_tokens: int = 0,
                     resident_bytes: int = 0, capacity_bytes: int = 0,
                     resident_by_group: dict = None,
                     prefill_seconds: float = 0.0,
-                    decode_seconds: float = 0.0) -> None:
+                    decode_seconds: float = 0.0,
+                    chunk_seconds: float = 0.0) -> None:
         self.steps.append(ServeStep(
             step=step, seconds=seconds, active_slots=tuple(active_slots),
             n_slots=n_slots, blocks_in_use=blocks_in_use, n_blocks=n_blocks,
-            prefills=prefills, new_tokens=new_tokens,
+            prefills=prefills, prefill_chunks=prefill_chunks,
+            new_tokens=new_tokens,
             resident_bytes=resident_bytes, capacity_bytes=capacity_bytes,
             resident_by_group=dict(resident_by_group or {}),
-            prefill_seconds=prefill_seconds, decode_seconds=decode_seconds))
+            prefill_seconds=prefill_seconds, decode_seconds=decode_seconds,
+            chunk_seconds=chunk_seconds))
+        # chunk work units are not emitted tokens: only completed prefills
+        # (one token each) and decode tokens count
         self._total_tokens += new_tokens + prefills
         self._busy_seconds += seconds
         if n_blocks:
@@ -84,6 +95,8 @@ class ServeTelemetry:
                 self._peak_group_bytes.get(group, 0), nbytes)
         self._prefills += prefills
         self._prefill_seconds += prefill_seconds
+        self._chunks += prefill_chunks
+        self._chunk_seconds += chunk_seconds
         if active_slots:
             self._decode_steps += 1
             self._decode_seconds += decode_seconds
@@ -121,10 +134,20 @@ class ServeTelemetry:
         return self._max_concurrency
 
     def mean_prefill_ms(self) -> float:
-        """Whole-run mean time of one whole-prompt prefill (with its
-        insertion into the paged pools)."""
+        """Whole-run mean prefill time per prompt: its admission and its
+        whole (or bucketed) prefill with the insertion into the paged pools
+        or its lane, or all its chunk steps."""
         return self._prefill_seconds / self._prefills * 1e3 \
             if self._prefills else 0.0
+
+    def prefill_chunks(self) -> int:
+        """Chunked-prefill work units over the whole run."""
+        return self._chunks
+
+    def mean_chunk_ms(self) -> float:
+        """Whole-run mean time of one chunked-prefill step."""
+        return self._chunk_seconds / self._chunks * 1e3 \
+            if self._chunks else 0.0
 
     def mean_decode_step_ms(self) -> float:
         """Whole-run mean time of one batched decode step."""

@@ -1,5 +1,7 @@
 from .cache import (AllocatorInvariantError, BlockAllocator, CacheConfig,
                     CacheError, CacheExhausted, PagedKVStore)
-from .engine import (ContinuousEngine, Engine, make_paged_decode_step,
+from .engine import (PREFILL_BUCKET_FLOOR, ContinuousEngine, Engine,
+                     bucket_length, make_bucketed_prefill_step,
+                     make_chunk_prefill_step, make_paged_decode_step,
                      make_prefill_step, make_serve_step)
 from .scheduler import ActiveSlot, Request, SlotScheduler

@@ -2,7 +2,8 @@
 ``BlockAllocator`` and the physical ``PagedKVStore``.
 
 The port's copy of the global-attention, sliding-window and
-recurrent-state parts of ``repro.serve.cache``.  Cache memory is divided
+recurrent-state parts of ``repro.serve.cache``, with the chunked-prefill
+ring layout (``CacheLayout.prefill_chunk``).  Cache memory is divided
 into blocks of ``block_size`` tokens; each admitted request owns a
 per-slot block table that grows one block at a time as it decodes, and
 every block returns to the free list when the request finishes.  A model
@@ -76,13 +77,17 @@ class CacheLayout:
     regime.  ``window`` is the sliding-window width (0 = no window group)
     and ``window_cap_blocks`` the admission price of one ring: the most
     blocks a lane can pin at once.  ``state_slots``/``state_bytes_per_slot``
-    describe the recurrent lanes (0 slots = no recurrent group)."""
+    describe the recurrent lanes (0 slots = no recurrent group).
+    ``prefill_chunk`` (chunked prefill): window rings start at block 0 and
+    slide forward with the chunks, and the cap counts the in-flight
+    chunk's blocks."""
 
     has_global: bool = True
     window: int = 0
     window_cap_blocks: int = 0
     state_slots: int = 0
     state_bytes_per_slot: int = 0
+    prefill_chunk: int = 0
 
 
 class PagedKVStore:
@@ -287,10 +292,16 @@ class BlockAllocator:
     def _allocate_window(self, slot: int, n_tokens: int) -> None:
         """Initial window ring: a whole-prompt prefill lands only the last
         ``window`` positions in the ring, so cover the blocks holding
-        ``[max(0, p - window + 1), p]``, p = ``n_tokens - 1``."""
+        ``[max(0, p - window + 1), p]``, p = ``n_tokens - 1``; chunked
+        prefill starts at block 0 and slides forward with the chunks
+        (``extend_window``)."""
         bs, W = self.config.block_size, self.layout.window
-        p = n_tokens - 1
-        lo = max(0, p - W + 1) // bs
+        if self.layout.prefill_chunk:
+            p = min(self.layout.prefill_chunk, n_tokens) - 1
+            lo = 0
+        else:
+            p = n_tokens - 1
+            lo = max(0, p - W + 1) // bs
         blocks = self._claim(p // bs - lo + 1, f"slot {slot} window ring")
         self.window_tables[slot] = {lo + i: b for i, b in enumerate(blocks)}
 
@@ -318,18 +329,23 @@ class BlockAllocator:
         self._tokens[slot] = n_tokens_total
         return fresh
 
-    def extend_window(self, slot: int, n_tokens_total: int) -> tuple:
+    def extend_window(self, slot: int, n_tokens_total: int,
+                      first_query_pos: Optional[int] = None) -> tuple:
         """Slide ``slot``'s window ring forward to cover position
         ``n_tokens_total - 1``: claim blocks up to its logical block, and
-        free every block that has fallen fully behind that position minus
-        the window.  Returns ``(fresh, freed)`` physical block ids; either
-        non-empty means the published table row must be rebuilt."""
+        free every block that has fallen fully behind
+        ``first_query_pos - window`` (default: the covered position itself,
+        the decode case; chunked prefill passes the chunk's first row, so
+        that its earlier queries keep their window).  Returns ``(fresh,
+        freed)`` physical block ids; either non-empty means the published
+        table row must be rebuilt."""
         if slot not in self.window_tables:
             raise AllocatorInvariantError(f"slot {slot} has no window ring")
         bs, W = self.config.block_size, self.layout.window
         ring = self.window_tables[slot]
         p = n_tokens_total - 1
-        lo = max(0, p - W + 1) // bs
+        fq = p if first_query_pos is None else first_query_pos
+        lo = max(0, fq - W + 1) // bs
         freed = [ring.pop(i) for i in sorted(ring) if i < lo]
         self._free.extend(reversed(freed))
         cur_hi = max(ring, default=lo - 1)

@@ -47,6 +47,11 @@ class ActiveSlot:
     def n_generated(self) -> int:
         return len(self.tokens)
 
+    @property
+    def position(self) -> int:
+        """Absolute position of the next token to be decoded."""
+        return self.request.prompt_len + self.n_generated
+
     def is_finished(self) -> bool:
         if self.n_generated >= self.request.max_new_tokens:
             return True

@@ -3,10 +3,11 @@
 Same weights and inputs (numpy, seeded) through the JAX function and its
 port, at the reduced TinyLlama size, in f32, atol 1e-5.  Covers RMSNorm,
 RoPE, attention layers with no cache, a prefill cache, dense decode and
-paged decode, the gated FFN, and the in-place paged write; and at the
-reduced recurrentgemma-2b size (MQA, hd 16, window 32) the sliding-window
-attention layer with no cache, a ring-filled prefill cache, dense decode
-and paged decode through window ring tables.
+paged decode and chunk prefill, the gated FFN, and the in-place paged
+write; and at the reduced recurrentgemma-2b size (MQA, hd 16, window 32)
+the sliding-window attention layer with no cache, a ring-filled prefill
+cache, dense decode, and paged decode and chunk prefill through window
+ring tables.
 """
 
 import jax
@@ -163,19 +164,49 @@ def test_ffn_layer_matches_jax(act):
     _close(blocks.ffn_layer(cfg, tp, tx), jblocks.ffn_layer(jcfg, jp, jx))
 
 
+def _paged_chunk_case(cfg, jcfg, seed, local, table, start, chunk):
+    """One lane's ``chunk`` rows from ``start`` through ``table`` (a block
+    table row, or a window ring's), over pools holding earlier rows: the
+    output and the pools (null page aside) against JAX, both impls."""
+    jp, tp = _attn_params(seed, jcfg)
+    rng = np.random.default_rng(seed)
+    bs, null = 16, 9
+    pools = rng.standard_normal((2, null + 1, bs, cfg.n_kv_heads,
+                                 cfg.head_dim)).astype(np.float32)
+    tables = np.array([table], np.int32)
+    pos = np.arange(start, start + chunk, dtype=np.int32)
+    jx, tx = _both(rng.standard_normal((1, chunk, 64)).astype(np.float32))
+    jcache = {"k_pages": jnp.asarray(pools[0]),
+              "v_pages": jnp.asarray(pools[1])}
+    jout, jcache = jblocks.attn_layer(
+        jcfg, jp, jx, local=local, positions=jnp.asarray(pos),
+        cache=jcache, paged_tables=jnp.asarray(tables))
+    for impl in ("kernel", "plain"):
+        tcache = {"k_pages": torch.from_numpy(pools[0].copy()),
+                  "v_pages": torch.from_numpy(pools[1].copy())}
+        tout, tcache = blocks.attn_layer(
+            cfg, tp, tx, local=local, positions=torch.from_numpy(pos),
+            cache=tcache, impl=impl, paged_tables=torch.from_numpy(tables))
+        _close(tout, jout)
+        for key in ("k_pages", "v_pages"):
+            _close(tcache[key][:-1], jcache[key][:-1])
+
+
 def test_local_layers_are_not_ported():
     """Sliding-window layers run dense prefill, dense decode and the paged
-    decode step (tests below); their multi-row paged path, which chunked
-    prefill needs, is not ported and raises."""
-    _, tp = _attn_params(7)
-    pool = torch.zeros(3, 4, CFG.n_kv_heads, CFG.head_dim)
-    with pytest.raises(NotImplementedError):
-        blocks.attn_layer(CFG.replace(window_size=8), tp,
-                          torch.zeros(1, 2, 64), local=True,
-                          positions=torch.arange(2, dtype=torch.int32),
-                          cache={"k_pages": pool, "v_pages": pool.clone()},
-                          paged_tables=torch.zeros((1, 2),
-                                                   dtype=torch.int32))
+    decode step (tests below), and the multi-row paged path that chunked
+    prefill runs: a chunk of 8 rows at positions 57..64 through a window
+    ring whose block 0 fell behind the window of 32 (null) and whose block
+    4 the chunk has just claimed."""
+    _paged_chunk_case(RG_CFG, RG_JCFG, 7, True, [9, 4, 0, 7, 5, 9], 57, 8)
+
+
+@pytest.mark.parametrize("start,chunk", [(0, 7), (14, 8), (60, 7)])
+def test_attn_layer_paged_chunk_matches_jax(start, chunk):
+    """A global layer's multi-row paged path: a chunk from the prompt's
+    start, one across a block edge, and one whose last rows reach past the
+    table (to the null page)."""
+    _paged_chunk_case(CFG, JCFG, 11, False, [3, 1, 6, 2], start, chunk)
 
 
 @pytest.mark.parametrize("S", [20, 45])

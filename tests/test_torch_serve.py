@@ -12,7 +12,10 @@ lanes and their state slabs are reused, and with retired lanes whose slabs
 the batched step must leave alone; for recurrentgemma with prompts longer
 than the window, so that window rings free blocks, and with the same
 residency by cache group as the JAX engine).  Also the port's config copy,
-parameter init and conversion, its refusals, and its device rule.
+parameter init and conversion, its refusals, its device rule, and the
+launcher in each arch's paged, bucketed and chunked paged, and dense-lane
+continuous modes (``tests/test_torch_serve_modes.py`` holds the modes
+themselves against JAX).
 """
 
 import dataclasses
@@ -224,11 +227,13 @@ def test_continuous_engine_plain_equals_kernel_path_on_cpu(models):
 def test_engines_refuse_what_is_not_ported(models):
     _, cfg, _, tp = models
     kw = dict(kv_len=KV_LEN, device="cpu")
-    for flag in ({"bucket_prompts": True}, {"prefill_chunk": 16},
-                 {"prefix_cache": True}, {"speculate": 2}, {"paged": False}):
-        opts = {"paged": True, **flag}
-        with pytest.raises(NotImplementedError):
-            ContinuousEngine(cfg, tp, **opts, **kw)
+    for flag in ({"prefix_cache": True}, {"speculate": 2}):
+        for paged in (True, False):
+            with pytest.raises(NotImplementedError):
+                ContinuousEngine(cfg, tp, paged=paged, **flag, **kw)
+    # the reference's check: chunks are written into the page pools
+    with pytest.raises(ValueError, match="prefill_chunk requires paged"):
+        ContinuousEngine(cfg, tp, paged=False, prefill_chunk=16, **kw)
     eng = ContinuousEngine(cfg, tp, paged=True, **kw)
     with pytest.raises(NotImplementedError, match="sampling"):
         eng.submit([1, 2], 3, sampling=object())
@@ -253,6 +258,17 @@ def test_entry_points_need_a_card_unless_told_cpu(models, monkeypatch):
         launch_serve.main(["--arch", ARCH, "--reduced"])
 
 
+def _launch_modes(capsys, arch, *args):
+    """The continuous launcher with ``args`` in the README's bucketed and
+    chunked paged mode and with dense lanes; returns both outputs."""
+    outs = []
+    for mode in (["--paged", "--bucket", "--chunk-prefill", "8"], []):
+        launch_serve.main(["--arch", arch, "--reduced", "--continuous",
+                           "--device", "cpu", *mode, *args])
+        outs.append(capsys.readouterr().out)
+    return outs
+
+
 def test_launcher_serves_on_cpu(capsys):
     launch_serve.main(["--arch", ARCH, "--reduced", "--continuous",
                        "--paged", "--device", "cpu", "--requests", "3",
@@ -260,6 +276,12 @@ def test_launcher_serves_on_cpu(capsys):
                        "--kv-len", "32"])
     out = capsys.readouterr().out
     assert "3 requests, 12 tokens" in out
+    chunked, dense = _launch_modes(capsys, ARCH, "--requests", "3",
+                                   "--prompt-len", "19", "--max-new", "4",
+                                   "--kv-len", "32")
+    assert "3 requests, 12 tokens" in chunked and "chunks=9 " in chunked
+    assert "3 requests, 12 tokens" in dense and "dense lanes" in dense
+    assert chunked.splitlines()[-1] == dense.splitlines()[-1]
     launch_serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                        "--batch", "2", "--prompt-len", "5", "--max-new",
                        "3", "--kv-len", "16"])
@@ -354,6 +376,12 @@ def test_ssm_launcher_serves_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "3 requests, 12 tokens" in out
     assert "0 layer pools" in out and "recurrent=" in out
+    chunked, dense = _launch_modes(capsys, SSM_ARCH, "--requests", "3",
+                                   "--prompt-len", "6", "--max-new", "4",
+                                   "--kv-len", "32")
+    assert "3 requests, 12 tokens" in chunked and "chunks=3 " in chunked
+    assert "3 requests, 12 tokens" in dense and "dense lanes" in dense
+    assert chunked.splitlines()[-1] == dense.splitlines()[-1]
     launch_serve.main(["--arch", SSM_ARCH, "--reduced", "--device", "cpu",
                        "--batch", "2", "--prompt-len", "5", "--max-new",
                        "3", "--kv-len", "16"])
@@ -426,6 +454,13 @@ def test_rg_launcher_serves_on_cpu(capsys):
     assert "3 requests, 15 tokens" in out
     assert "1 layer pools" in out and "window=" in out and \
         "recurrent=" in out
+    chunked, dense = _launch_modes(capsys, RG_ARCH, "--requests", "3",
+                                   "--prompt-len", "40", "--max-new", "5",
+                                   "--kv-len", "64")
+    assert "3 requests, 15 tokens" in chunked and "chunks=15 " in chunked
+    assert "window=" in chunked
+    assert "3 requests, 15 tokens" in dense and "dense lanes" in dense
+    assert chunked.splitlines()[-1] == dense.splitlines()[-1]
     launch_serve.main(["--arch", RG_ARCH, "--reduced", "--device", "cpu",
                        "--batch", "2", "--prompt-len", "40", "--max-new",
                        "3", "--kv-len", "64"])
