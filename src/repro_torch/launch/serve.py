@@ -16,12 +16,24 @@ Usage (on the CUDA card; ``--device cpu`` runs the plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-2b --continuous --paged
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        --continuous --paged --adapt --devices 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --reduced --batch 4 --prompt-len 16 --max-new 32 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --reduced --continuous --paged --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-2b --reduced --continuous --paged \
         --prompt-len 40 --kv-len 96 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-mlp \
+        --reduced --continuous --paged --adapt --devices 4 --device cpu
+
+``--adapt`` closes the paper's compiler/assistant loop on the continuous
+path: the engine is sized from a plan compiled (or fetched from the plan
+cache) for its decode shape on ``--devices`` modelled H100 SXM cards, and
+after the run the serving telemetry (slot occupancy, cache pressure) feeds
+the §3 scheduling assistants, which rebalance that plan under the measured
+serving interference.  The plan's step times are modelled from datasheet
+figures, not measured.
 
 Weights are random, drawn from ``--seed`` with a ``torch.Generator`` on
 the serving device; prompts come from the same generator.
@@ -35,6 +47,7 @@ import time
 import torch
 
 from repro_torch import configs
+from repro_torch.core import H100_SXM, Topology, adapt_plan, compile_plan
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.serve import ContinuousEngine, Engine
@@ -63,11 +76,20 @@ def _static(args, cfg, params, gen, device, dtype):
 
 
 def _continuous(args, cfg, params, gen, device, dtype):
+    plan = None
+    if args.adapt:
+        # compile (or fetch from the plan cache) the placement for the
+        # decode traffic this launch serves: the engine's cache length x
+        # lane count, on the modelled cards of --devices
+        serve_shape = ContinuousEngine.decode_shape_for(args.kv_len,
+                                                        args.batch)
+        plan = compile_plan(cfg, serve_shape,
+                            Topology.homogeneous(args.devices, H100_SXM))
     eng = ContinuousEngine(cfg, params, kv_len=args.kv_len,
                            n_slots=args.batch, paged=args.paged,
                            bucket_prompts=args.bucket,
                            prefill_chunk=args.chunk_prefill,
-                           dtype=dtype, device=device)
+                           dtype=dtype, device=device, plan=plan)
     for i in range(args.requests):
         prompt = torch.randint(0, cfg.vocab_size, (args.prompt_len,),
                                generator=gen, device=device)
@@ -103,6 +125,33 @@ def _continuous(args, cfg, params, gen, device, dtype):
               f"peak by group: {by_group}")
     if results:
         print("first request:", results[0])
+    if args.adapt:
+        _adapt(plan, eng)
+
+
+def _adapt(plan, eng) -> None:
+    """The §3 assistants over the engine's plan under the run's serving
+    interference; the trace's deltas are validated by
+    ``CompiledPlan.apply``."""
+    tel = eng.telemetry
+    assert plan.shape == eng.decode_shape()
+    cb = tel.assistant_callback(plan.graph, plan.cost_model)
+    adapted, trace = adapt_plan(
+        plan, interference=tel.device_interference(plan.k), telemetry=cb)
+    print(f"[adapt] plan {plan.describe()}"
+          + (" (plan-cache hit)" if plan.from_cache else ""))
+    print(f"[adapt] assistants: {len(trace.deltas)} deltas, step time "
+          f"{trace.step_times[0]*1e3:.2f}ms -> "
+          f"{trace.step_times[-1]*1e3:.2f}ms "
+          f"({trace.improvement:.1%} improvement under serving load)")
+    for d in trace.deltas:
+        print(f"[adapt]   delta cycle={d.cycle} {d.node}: "
+              f"{d.src} -> {d.dst} ({d.resource}, "
+              f"gain {d.gain*1e3:+.2f}ms)")
+    if trace.deltas:
+        print(f"[adapt] adapted t_step {adapted.step_time*1e3:.2f}ms "
+              f"cut {adapted.cut_bytes:.3e}B (trace replayable: "
+              f"{adapted.assignment == trace.replay(plan.assignment)})")
 
 
 def main(argv=None):
@@ -131,12 +180,21 @@ def main(argv=None):
                     help="continuous: number of requests in the trace")
     ap.add_argument("--stagger", type=int, default=2,
                     help="continuous: arrival gap between requests, in steps")
+    ap.add_argument("--adapt", action="store_true",
+                    help="continuous: size the engine from a compiled plan "
+                         "and feed the serve telemetry to the §3 "
+                         "assistants")
+    ap.add_argument("--devices", type=int, default=4,
+                    help="modelled H100 SXM count for --adapt planning")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default=None,
                     help="parameter and cache type (default: float32 with "
                          "--reduced, else bfloat16)")
     args = ap.parse_args(argv)
+    if args.adapt and not args.continuous:
+        ap.error("--adapt requires --continuous (it sizes the continuous "
+                 "engine from a compiled plan)")
 
     cfg = configs.get(args.arch)
     if args.reduced:

@@ -5,7 +5,8 @@ described identically in both packages (the tests compare the two field by
 field).  Layer structure is a per-layer ``LayerSpec(mixer, ffn)`` sequence,
 compressed into ``Segment`` runs (cycle of layer classes x repeats); the
 port's parameters and caches carry a stacked leading layer axis per
-segment, as the reference's do.
+segment, as the reference's do.  ``ShapeConfig`` and ``SHAPES`` name the
+input shapes the planner (``repro_torch.core``) builds graphs for.
 """
 
 from __future__ import annotations
@@ -115,6 +116,10 @@ class ModelConfig:
             out.append(LayerSpec(mixer, ffn))
         return tuple(out)
 
+    def enc_layers(self) -> tuple[LayerSpec, ...]:
+        return tuple(LayerSpec("global", "dense")
+                     for _ in range(self.n_enc_layers))
+
     def segments(self) -> tuple[Segment, ...]:
         """Compress layers() into (cycle, repeats) segments: the longest
         run of whole repeats of the leading cycle, else a uniform run of
@@ -211,3 +216,21 @@ class ModelConfig:
             frontend_tokens=8 if self.frontend else 0,
             frontend_dim=d_model if self.frontend else 0,
         )
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One planning problem's input shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}

@@ -1,1 +1,2 @@
 from .telemetry import ServeStep, ServeTelemetry
+from .elastic import ElasticController

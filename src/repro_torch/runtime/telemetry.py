@@ -3,7 +3,9 @@ that the continuous-batching engine records each step (slot occupancy,
 block-pool pressure, residency overall and by cache group, emitted
 tokens, step time), plus the split of each step's host-clock time into
 its prefill and decode parts, and the chunk steps' share of the prefill
-part.
+part; and its bridge to the paper's §3 scheduling assistants
+(``device_interference``, ``assistant_callback``), copied from the
+reference.
 
 The engine reads a token back to the host at the end of every prefill and
 every decode step, which waits for the device, so these host-clock times
@@ -15,6 +17,7 @@ from __future__ import annotations
 import statistics
 from collections import deque
 from dataclasses import dataclass, field
+from typing import Callable, ClassVar
 
 
 @dataclass
@@ -41,7 +44,17 @@ class ServeStep:
 
 @dataclass
 class ServeTelemetry:
-    """Per-step serving counters with whole-run aggregates."""
+    """Per-step serving counters with whole-run aggregates, and the bridge
+    to the §3 assistants.
+
+    ``device_interference`` maps slot occupancy onto the device mesh (slot s
+    is served by device ``s % k``, the engine's round-robin lane placement)
+    and cache pressure onto memory, producing the per-device busy-time
+    multipliers ``core.assistants.simulate_utilization`` consumes.
+    """
+
+    alpha: ClassVar[float] = 0.75  # compute inflation per unit occupancy
+    beta: ClassVar[float] = 0.5    # memory inflation per unit cache pressure
 
     window: int = 50
     history: int = 10_000        # retained ServeStep records
@@ -161,3 +174,40 @@ class ServeTelemetry:
         if self._busy_seconds <= 0:
             return 0.0
         return self._total_tokens / self._busy_seconds
+
+    # -- assistant bridge (paper §3) -------------------------------------------
+    def device_interference(self, k: int) -> list:
+        """Per-device busy-time multipliers from serving load.
+
+        Slot s maps to device ``s % k``; a device whose lanes are saturated
+        gets its compute busy time inflated by ``1 + alpha``, and cache
+        pressure inflates every device's memory busy time.
+        """
+        recent = self._recent()
+        press = self.cache_pressure()
+        per_dev = [0.0] * k
+        if recent:
+            for s in recent:
+                slots_per_dev = max(1, -(-s.n_slots // k))
+                hits = [0] * k
+                for slot in s.active_slots:
+                    hits[slot % k] += 1
+                for d in range(k):
+                    per_dev[d] += min(1.0, hits[d] / slots_per_dev)
+            per_dev = [x / len(recent) for x in per_dev]
+        return [{"compute": 1.0 + self.alpha * per_dev[d],
+                 "memory": 1.0 + self.beta * press,
+                 "network": 1.0} for d in range(k)]
+
+    def assistant_callback(self, graph, cost_model) -> Callable:
+        """A ``telemetry=`` callback for ``core.assistants.run_adaptation``:
+        utilization under the measured serving interference, re-evaluated
+        against each candidate assignment as the assistants migrate nodes."""
+        from repro_torch.core.assistants import simulate_utilization
+
+        interference = self.device_interference(cost_model.k)
+
+        def callback(assignment):
+            return simulate_utilization(graph, assignment, cost_model,
+                                        interference=interference)
+        return callback

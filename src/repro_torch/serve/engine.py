@@ -47,7 +47,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.runtime.telemetry import ServeTelemetry
 
 from .cache import (BlockAllocator, CacheConfig, CacheExhausted, CacheLayout,
@@ -211,12 +211,18 @@ class ContinuousEngine:
     lanes, retire finished slots and reclaim their blocks, rings and state
     slots.  The prefix cache, speculation and sampling raise
     ``NotImplementedError``.
+
+    ``plan=`` takes a compiled plan (``repro_torch.core.CompiledPlan``) for
+    the served decode shape (``decode_shape_for(kv_len, n_slots)``): the
+    engine takes its cache length and lane count from it, and ``kv_len`` or
+    ``n_slots`` given beside it must agree with it.  Without a plan,
+    ``n_slots`` defaults to 4.
     """
 
     cfg: ModelConfig
     params: dict
     kv_len: int = 0
-    n_slots: int = 4
+    n_slots: Optional[int] = None
     dtype: torch.dtype = torch.float32
     impl: str = "kernel"
     block_size: int = 16
@@ -227,6 +233,9 @@ class ContinuousEngine:
     speculate: int = 0
     device: Optional[object] = None
     telemetry: Optional[ServeTelemetry] = None
+    # the compiled plan of the served decode shape; it sizes the cache
+    # length and lane count, and is the plan --adapt rebalances
+    plan: Optional[object] = field(default=None, repr=False)
     _next_rid: int = field(default=0, repr=False)
 
     def __post_init__(self):
@@ -235,8 +244,36 @@ class ContinuousEngine:
             if getattr(self, name):
                 raise NotImplementedError(f"{name} is not ported yet")
         _check_servable(self.cfg)
+        if self.plan is not None:
+            # full-config equality, not name equality: cfg.reduced() keeps
+            # the name, and a plan for the full model must not size (or
+            # later adapt) an engine serving the reduced one
+            if self.plan.cfg != self.cfg:
+                raise ValueError(
+                    f"plan was compiled for {self.plan.cfg.name!r} "
+                    f"(dims differ or different arch), engine serves "
+                    f"{self.cfg.name!r}")
+            pshape = self.plan.shape
+            # explicit sizing must agree with the plan, never contradict
+            # it: the attached plan is what --adapt rebalances
+            if self.kv_len > 0 and self.kv_len != int(pshape.seq_len):
+                raise ValueError(
+                    f"plan models seq_len={pshape.seq_len} but "
+                    f"kv_len={self.kv_len} was passed; drop kv_len= or "
+                    "compile the plan for the served decode shape")
+            if (self.n_slots is not None
+                    and self.n_slots != int(pshape.global_batch)):
+                raise ValueError(
+                    f"plan models global_batch={pshape.global_batch} but "
+                    f"n_slots={self.n_slots} was passed; drop n_slots= or "
+                    "compile the plan for the served decode shape")
+            self.kv_len = int(pshape.seq_len)
+            self.n_slots = int(pshape.global_batch)
+        if self.n_slots is None:
+            self.n_slots = 4
         if self.kv_len <= 0:
-            raise ValueError("kv_len must be positive")
+            raise ValueError("kv_len must be positive (set it directly or "
+                             "pass a CompiledPlan via plan=)")
         if self.prefill_chunk and not self.paged:
             raise ValueError("prefill_chunk requires paged=True (chunks are "
                              "written straight into the page pools)")
@@ -270,6 +307,19 @@ class ContinuousEngine:
         self._rids: set = set()
         # slot -> [prompt, chunks done] while chunk-prefilling
         self._prefilling: dict[int, list] = {}
+
+    @staticmethod
+    def decode_shape_for(kv_len: int, n_slots: int) -> ShapeConfig:
+        """The planning shape of a serving configuration: the one
+        constructor every call site shares, so that compiled plans key
+        identically (the reference's name and fields)."""
+        return ShapeConfig(f"serve_decode_{kv_len}", kv_len, n_slots,
+                           "decode")
+
+    def decode_shape(self) -> ShapeConfig:
+        """The decode traffic this engine serves: cache length x lane
+        count, the shape adaptation plans for."""
+        return self.decode_shape_for(self.kv_len, self.n_slots)
 
     def _init_paged(self) -> None:
         """Page pools, per-group block tables, recurrent state slabs and

@@ -1,7 +1,8 @@
 """Import discipline of the port: nothing under ``src/repro_torch`` and not
 ``chip_smoke.py`` imports JAX or the JAX package ``repro`` (the port keeps
-its own copies), and no kernel wrapper catches a failed launch to fall
-back to the plain version."""
+its own copies), the planning loop (``repro_torch.core``) imports no
+``torch``, and no kernel wrapper catches a failed launch to fall back to
+the plain version."""
 
 import ast
 from pathlib import Path
@@ -31,6 +32,28 @@ def test_port_imports_neither_jax_nor_repro(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+CORE_FILES = sorted((ROOT / "src" / "repro_torch" / "core").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", CORE_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_planning_loop_is_pure_python(path):
+    """The planner (``repro_torch.core``) imports no ``torch``, as the
+    reference's imports no ``jax``."""
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] == "torch" or m.startswith("repro_torch.")
+           and not m.startswith(("repro_torch.core", "repro_torch.models."
+                                 "config"))]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_planning_loop_has_its_modules():
+    assert [p.stem for p in CORE_FILES] == [
+        "__init__", "assistants", "cost_model", "graph", "graphgen",
+        "multilevel", "partitioner", "plan", "plan_cache", "planner",
+        "topology"]
 
 
 def test_import_check_catches_offenders(tmp_path):
