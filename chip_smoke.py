@@ -109,6 +109,28 @@ exit code:
    kernel's device time per launch on the path, with the kernel functions
    it ran: mamba2's must be the SSD kernel's tensor-core body only).
 
+8. train   — single-card training, after the serving paths, with every
+   launch counter zeroed before it and required to stay at zero (training
+   runs the plain layers under autograd; no kernel has a backward).
+   (a) The card against the host CPU: each of the four configs cut to one
+   cycle repeat at its published widths, one f32 ``loss_fn`` + autograd
+   step at B 2, S 64 from the same weights and batch on both; loss within
+   1e-5 relative, grad norm within 1e-4 relative, every gradient leaf
+   within 1e-4 of that leaf's max-abs.  (b) Full depth and width in bf16
+   through ``repro_torch.launch.train.main``: TinyLlama B 8, S 512, 20
+   steps at ``--lr 3e-3`` cosine (the mean of its last 5 losses must be
+   0.2 under that of its first 5), Mamba-2 B 4, S 512, RecurrentGemma
+   B 2, S 256 and paper-mlp B 8, S 512, 5 steps each at the launcher's
+   defaults; every loss and grad norm finite and every parameter leaf
+   moved; the line gives the median step (``Telemetry``), tokens/s, peak
+   device memory, model FLOP/s (6 x parameters x tokens per second) as a
+   share of the 989 TFLOP/s bf16 peak, and the plan's modelled step time.
+   (c) Gradient accumulation: full TinyLlama in f32, B 4, S 256,
+   ``grad_accum=2`` against 1, |d loss| < 1e-4 and max |d param| < 5e-3
+   (the reference's bars).  (d) Resume: full paper-mlp in f32 through the
+   launcher, 6 steps straight against 3 steps, a checkpoint, and 3 more
+   with ``--resume``; the losses of steps 4-6 within 1e-5 relative.
+
 Then the ``{"kernels": [...]}`` summary line (paged and flash attention at
 TinyLlama's hd 64, with recurrentgemma's hd 256 beside them; every kernel
 with its long shape; launches summed over every full-width run of phases
@@ -160,6 +182,10 @@ TOL = {("paged", "float32"): 1e-5, ("flash", "float32"): 2e-5,
        ("ssd", "float32"): 1e-4, ("ssd", "bfloat16"): 1e-4,
        ("rglru", "float32"): 1e-4, ("rglru", "near_one"): 1e-3}
 SSD_CHUNK = 32          # the chunk ssd_cost counts C B^T over
+# phase train (b): (arch, batch, seq, steps, extra launcher flags)
+TRAIN_RUNS = ((ARCH, 8, 512, 20, ("--lr", "3e-3", "--schedule", "cosine")),
+              (SSM_ARCH, 4, 512, 5, ()), (RG_ARCH, 2, 256, 5, ()),
+              (MLP_ARCH, 8, 512, 5, ()))
 
 
 def emit(phase: str, **fields) -> None:
@@ -1329,6 +1355,226 @@ def phase_timing_rg(dev, served: dict) -> None:
                         for name, fn in launch_counters().items()})
 
 
+def _value_and_grad(loss_fn, params, batch) -> tuple:
+    """(loss, {path: gradient}) of ``loss_fn`` at ``params``."""
+    from repro_torch.train import value_and_grad
+    from repro_torch.tree import flatten
+    loss, _, grads = value_and_grad(loss_fn, params, batch)
+    return loss, {path: g for (path, _), g in zip(flatten(params), grads)}
+
+
+def _device_batch(cfg, seq, batch, seed, dev) -> dict:
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch, seed=seed))
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in data.batch_at(0).items()}
+
+
+def train_card_vs_host(dev) -> None:
+    """(a): one f32 step of each config cut to one cycle repeat, on the
+    card and on the host CPU, from the same weights and batch."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.optim import constant, global_norm
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_map, unflatten
+    for arch in (ARCH, SSM_ARCH, RG_ARCH, MLP_ARCH):
+        full = configs.get(arch)
+        cfg = full.replace(n_layers=len(full.layer_cycle))
+        _, loss_fn = make_train_step(cfg, constant(0.0))
+        host = lm.init_params(cfg, torch.Generator().manual_seed(11), "cpu",
+                              torch.float32)
+        card = tree_map(lambda t: t.to(dev), host)
+        out = {}
+        for where, params, d in (("host", host, torch.device("cpu")),
+                                 ("card", card, dev)):
+            t0 = time.perf_counter()
+            loss, grads = _value_and_grad(
+                loss_fn, params, _device_batch(cfg, 64, 2, 11, d))
+            norm = global_norm(unflatten(grads.items())).item()
+            out[where] = (loss.item(), norm,
+                          {k: g.cpu() for k, g in grads.items()},
+                          time.perf_counter() - t0)
+        (hl, hn, hg, hs), (cl, cn, cg, cs) = out["host"], out["card"]
+        leaf_err = max(((cg[k] - hg[k]).abs().max()
+                        / hg[k].abs().max().clamp_min(1e-30)).item()
+                       for k in hg)
+        row = {"arch": arch, "n_layers": cfg.n_layers,
+               "params": sum(t.numel() for t in _leaves(host)),
+               "loss_host": hl, "loss_card": cl,
+               "loss_rel_err": abs(cl - hl) / abs(hl),
+               "grad_norm_host": hn, "grad_norm_card": cn,
+               "grad_norm_rel_err": abs(cn - hn) / hn,
+               "max_leaf_err_over_leaf_max": leaf_err,
+               "host_seconds": hs, "card_seconds": cs}
+        emit("train_card_vs_host", **row)
+        check(row["loss_rel_err"] <= 1e-5, f"{arch}: loss {cl} vs {hl}")
+        check(row["grad_norm_rel_err"] <= 1e-4,
+              f"{arch}: grad norm {cn} vs {hn}")
+        check(leaf_err <= 1e-4, f"{arch}: a gradient leaf is {leaf_err} of "
+              "its max-abs off the host's")
+        del host, card, out, hg, cg
+
+
+def _launch_train(*argv) -> dict:
+    """``repro_torch.launch.train.main``, its printed lines sent to
+    stderr so that standard output stays one JSON object per line."""
+    import contextlib
+    from repro_torch.launch import train as launch_train
+    with contextlib.redirect_stdout(sys.stderr):
+        return launch_train.main(list(argv))
+
+
+def train_full_width(dev) -> None:
+    """(b): each config at full depth and width in bf16 through the
+    launcher."""
+    import torch
+    from repro_torch.core import H100_SXM
+    from repro_torch.models import lm
+    from repro_torch.tree import flatten
+    for arch, batch, seq, steps, extra in TRAIN_RUNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = _launch_train("--arch", arch, "--batch", str(batch), "--seq",
+                            str(seq), "--steps", str(steps), "--log-every",
+                            "5", *extra)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        hist = res["history"]
+        start = lm.init_params(res["cfg"],
+                               torch.Generator(device=dev).manual_seed(0),
+                               dev, res["dtype"])
+        still = ["/".join(path) for (path, a), (_, b)
+                 in zip(flatten(start), flatten(res["params"]))
+                 if torch.equal(a, b)]
+        median_s = res["telemetry"].median_ms() / 1e3
+        tokens = batch * seq
+        losses = [h["loss"] for h in hist]
+        row = {"arch": arch, "dtype": "bfloat16", "batch": batch,
+               "seq": seq, "steps": steps, "params": res["n_params"],
+               "losses": losses,
+               "grad_norms": [h["grad_norm"] for h in hist],
+               "lrs": [h["lr"] for h in hist],
+               "step_ms": [h["seconds"] * 1e3 for h in hist],
+               "median_step_ms": median_s * 1e3,
+               "tokens_per_s": tokens / median_s,
+               "peak_memory_bytes": peak,
+               "model_flops_per_s": 6 * res["n_params"] * tokens / median_s,
+               "mfu_of_989_tflops": 6 * res["n_params"] * tokens / median_s
+               / H100_SXM.flops_per_s,
+               "plan": res["plan"].describe(),
+               "modelled_plan_step_ms": res["plan"].step_time * 1e3,
+               "stragglers": res["telemetry"].n_stragglers(),
+               "leaves_not_moved": still, "wall_seconds": wall}
+        emit("train_full_width", **row)
+        finite = [float(x) for x in losses + row["grad_norms"]]
+        check(all(abs(x) < float("inf") for x in finite),
+              f"{arch}: a loss or grad norm is not finite: {finite}")
+        check(not still, f"{arch}: leaves did not move: {still}")
+        if arch == ARCH:
+            first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+            check(last < first - 0.2,
+                  f"{arch}: mean loss {first} -> {last}, not 0.2 lower")
+        del res, start
+
+
+def train_grad_accum(dev) -> None:
+    """(c): full TinyLlama in f32, grad_accum 2 against 1, one step."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.optim import constant, init_state
+    from repro_torch.train import TrainStepConfig, make_train_step
+    from repro_torch.tree import flatten, tree_map
+    cfg = configs.get(ARCH)
+    p0 = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(12),
+                        dev, torch.float32)
+    batch = _device_batch(cfg, 256, 4, 12, dev)
+    out = []
+    for n in (1, 2):
+        params = tree_map(torch.clone, p0)
+        step_fn, _ = make_train_step(cfg, constant(1e-3),
+                                     TrainStepConfig(grad_accum=n))
+        params, _, m = step_fn(params, init_state(params), batch, 0)
+        out.append((params, m["loss"].item()))
+    (p1, l1), (p2, l2) = out
+    d_param = max((a - b).abs().max().item() for (_, a), (_, b)
+                  in zip(flatten(p1), flatten(p2)))
+    row = {"arch": ARCH, "dtype": "float32", "batch": 4, "seq": 256,
+           "loss_accum1": l1, "loss_accum2": l2, "d_loss": abs(l1 - l2),
+           "max_d_param": d_param}
+    emit("train_grad_accum", **row)
+    check(row["d_loss"] < 1e-4, f"grad_accum: |d loss| {row['d_loss']}")
+    check(d_param < 5e-3, f"grad_accum: max |d param| {d_param}")
+
+
+def train_resume() -> None:
+    """(d): full paper-mlp in f32 through the launcher, 6 steps straight
+    against 3, a checkpoint, and 3 more resumed."""
+    common = ("--arch", MLP_ARCH, "--batch", "8", "--seq", "512",
+              "--dtype", "float32", "--log-every", "1")
+    with tempfile.TemporaryDirectory(prefix="ckpt-") as ckpt:
+        straight = _launch_train(*common, "--steps", "6")
+        first = _launch_train(*common, "--steps", "3", "--ckpt-dir", ckpt,
+                              "--ckpt-every", "3")
+        resumed = _launch_train(*common, "--steps", "6", "--ckpt-dir", ckpt,
+                                "--resume")
+    got = first["history"] + resumed["history"]
+    exp = straight["history"]
+    rel = [abs(g["loss"] - e["loss"]) / abs(e["loss"])
+           for g, e in zip(got, exp)]
+    row = {"arch": MLP_ARCH, "dtype": "float32",
+           "steps": [g["step"] for g in got],
+           "losses_straight": [e["loss"] for e in exp],
+           "losses_resumed": [g["loss"] for g in got], "rel_err": rel,
+           "plan_cache_hits": [r["plan"].from_cache
+                               for r in (straight, first, resumed)]}
+    emit("train_resume", **row)
+    check(row["steps"] == list(range(6)),
+          f"resume: steps {row['steps']}")
+    check([h["step"] for h in resumed["history"]] == [3, 4, 5],
+          "resume did not start at step 3")
+    check(max(rel[3:]) <= 1e-5, f"resume: steps 4-6 losses off by {rel}")
+    check(all(row["plan_cache_hits"][1:]),
+          f"plan cache hits {row['plan_cache_hits']}: the same shape was "
+          "compiled again")
+
+
+def phase_train(dev) -> None:
+    """Phase train, checks (a)-(e), with every launch counter zeroed
+    before it and read after it."""
+    import gc
+    import os
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    old = os.environ.get("REPRO_TORCH_PLAN_CACHE")
+    with tempfile.TemporaryDirectory(prefix="train-plans-") as plans:
+        os.environ["REPRO_TORCH_PLAN_CACHE"] = plans
+        try:
+            train_card_vs_host(dev)
+            train_full_width(dev)
+            train_grad_accum(dev)
+            train_resume()
+        finally:
+            if old is None:
+                del os.environ["REPRO_TORCH_PLAN_CACHE"]
+            else:
+                os.environ["REPRO_TORCH_PLAN_CACHE"] = old
+    launches = {name: fn.launches for name, fn in counters.items()}
+    emit("train", seconds=time.perf_counter() - t0, launches=launches)
+    check(not any(launches.values()),
+          f"training launched kernels: {launches}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1406,6 +1652,8 @@ def main() -> int:
         # each kernel's launches over the paths' runs, and by path
         launches = {name: sum(p[name] for p in by_path.values())
                     for name in launch_counters()}
+        phase = "train"
+        phase_train(dev)
     except Exception as exc:  # report which phase failed, then fail
         traceback.print_exc()
         emit(phase, ok=False, error=f"{type(exc).__name__}: {exc}")

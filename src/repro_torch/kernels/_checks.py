@@ -14,7 +14,21 @@ def require(cond: bool, what: str, msg: str) -> None:
 
 
 def same_device_contiguous(what: str, **tensors) -> torch.device:
-    """All tensors on one device and contiguous; returns that device."""
+    """All tensors on one device and contiguous, and none that autograd
+    would need a backward for; returns that device.
+
+    No kernel has a backward, and a kernel's output is written through a
+    raw pointer, so it carries no ``grad_fn``: under grad mode an input
+    that requires grad would have its gradient dropped without a word.
+    That raises here, on the CPU too (where the wrapper would run its
+    differentiable plain version), so that no path relies on it."""
+    if torch.is_grad_enabled():
+        for name, t in tensors.items():
+            if t.is_floating_point() and t.requires_grad:
+                raise RuntimeError(
+                    f"{what}: {name} requires grad, but the {what} kernel "
+                    "has no backward; call it under torch.no_grad() or "
+                    "torch.inference_mode(), or train through impl='plain'")
     dev = None
     for name, t in tensors.items():
         require(t.is_contiguous(), what, f"{name} must be contiguous")

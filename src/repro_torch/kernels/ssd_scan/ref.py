@@ -41,13 +41,18 @@ def reference(xs, dt, A, B_mat, C_mat, D, *, chunk: int = 64,
     seg = torch.cumsum(dt_c * A, dim=2)                # within-chunk
     total = seg[:, :, -1]                              # [B, N, nh]
 
-    # intra-chunk: M[i, j] = C_i.B_j exp(seg_i - seg_j) dt_j  (j <= i)
+    # intra-chunk: M[i, j] = C_i.B_j exp(seg_i - seg_j) dt_j  (j <= i).
+    # The upper triangle is masked before the exp, where the reference
+    # masks after it: the values are the same (exp(-inf) = 0), but there
+    # seg_i - seg_j > 0 grows with the chunk and its exp overflows to inf
+    # (a chunk of 256 rows at dt ~ 0.7), and the backward of a mask after
+    # the exp multiplies that inf by a zero cotangent: NaN gradients
     G = torch.einsum("bnis,bnjs->bnij", Cc, Bc)
-    decay = torch.exp(seg[:, :, :, None, :] - seg[:, :, None, :, :])
     mask = torch.tril(torch.ones((L, L), dtype=torch.bool,
                                  device=xs.device))
-    M = G[..., None] * torch.where(mask[None, None, :, :, None], decay,
-                                   0.0) * dt_c[:, :, None, :, :]
+    diff = (seg[:, :, :, None, :] - seg[:, :, None, :, :]).masked_fill(
+        ~mask[None, None, :, :, None], float("-inf"))
+    M = G[..., None] * torch.exp(diff) * dt_c[:, :, None, :, :]
     y_intra = torch.einsum("bnijh,bnjhp->bnihp", M, xs_f)
 
     # chunk states: sum_j exp(total - seg_j) dt_j B_j (x) x_j

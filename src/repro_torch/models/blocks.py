@@ -47,12 +47,34 @@ def dense_init(gen: torch.Generator, shape: tuple, dtype,
     return (w * (1.0 / math.sqrt(shape[-2]))).to(dtype)
 
 
+class _RMSNorm(torch.autograd.Function):
+    """The reference's ``custom_vjp``: f32 math both ways, cotangents
+    returned in the input dtypes (d_x in x's, d_scale in scale's)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        xf = x.float()
+        rstd = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+        ctx.save_for_backward(x, scale, rstd)
+        return (xf * rstd * (1.0 + scale.float())).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, rstd = ctx.saved_tensors
+        gf = g.float()
+        xhat = x.float() * rstd
+        d_scale = (gf * xhat).sum(dim=tuple(range(g.dim() - 1)))
+        gx = gf * (1.0 + scale.float())
+        d_x = rstd * (gx - xhat * (gx * xhat).mean(dim=-1, keepdim=True))
+        return d_x.to(x.dtype), d_scale.to(scale.dtype), None
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm with f32 internals and a ``(1 + scale)`` gain."""
-    xf = x.float()
-    rstd = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
-    return (xf * rstd * (1.0 + scale.float())).to(x.dtype)
+    """RMSNorm with f32 internals and a ``(1 + scale)`` gain; its backward
+    (``_RMSNorm``) keeps the math in f32 and returns low-precision
+    cotangents, as the reference's custom VJP does."""
+    return _RMSNorm.apply(x, scale, eps)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

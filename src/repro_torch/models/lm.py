@@ -1,8 +1,8 @@
 """Model assembly for decoder-only archs built of global- or
 sliding-window-attention layers with a dense FFN, Mamba-2 SSD layers and
 RG-LRU layers with a dense FFN: parameter init, caches (dense, per-slot
-dense lanes and paged) and ``forward`` in prefill, chunk-prefill and
-decode modes.
+dense lanes and paged) and ``forward`` in prefill, chunk-prefill, decode
+and train modes.
 
 A port of the matching subset of ``repro.models.lm``.  Parameters and
 caches keep the reference's tree — ``seg{i}/c{j}/{attn,ffn,ssd,rglru}/...``
@@ -23,8 +23,10 @@ import math
 from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.tree import tree_map
 
 from . import blocks, rglru, ssm
 from .blocks import rms_norm, softcap
@@ -37,6 +39,7 @@ _MIXER_GROUP = {"global": "paged", "mla": "paged", "local": "window",
 _PORTED = frozenset({"global+dense", "local+dense", "ssd+none",
                      "rglru+dense"})
 _STATE_MIXERS = ("ssd", "rglru")
+MODES = ("prefill", "decode", "train")
 
 
 def unsupported_reason(cfg: ModelConfig) -> Optional[str]:
@@ -145,8 +148,8 @@ def init_slot_caches(cfg: ModelConfig, n_slots: int, kv_len: int,
     leading slot axis, so each lane is an independent single-request
     cache with its own ``pos`` rows.  ``slot_cache`` gives one lane."""
     single = init_cache(cfg, 1, kv_len, dtype, device)
-    return _tree_map(lambda t: t.expand((n_slots,) + t.shape).clone(),
-                     single)
+    return tree_map(lambda t: t.expand((n_slots,) + t.shape).clone(),
+                    single)
 
 
 def slot_cache(caches: dict, slot: int) -> dict:
@@ -159,14 +162,8 @@ def write_slot_cache(caches: dict, single: dict, slot: int) -> dict:
     """Copy a single-request cache into lane ``slot``, in place; the whole
     lane is replaced, so a new request never sees its predecessor's rows
     or state.  Returns ``caches``."""
-    _tree_map(lambda full, one: full[slot].copy_(one), caches, single)
+    tree_map(lambda full, one: full[slot].copy_(one), caches, single)
     return caches
-
-
-def _tree_map(fn, tree: dict, *rest: dict) -> dict:
-    return {k: _tree_map(fn, v, *(r[k] for r in rest))
-            if isinstance(v, dict) else fn(v, *(r[k] for r in rest))
-            for k, v in tree.items()}
 
 
 def serve_groups(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
@@ -403,15 +400,25 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, h, *,
 def _run_segment(cfg: ModelConfig, si: int, seg: Segment, seg_p: dict, h,
                  *, positions, seg_cache, impl: str, paged_tables=None,
                  window_tables=None,
-                 state_sink: Optional[StateSink] = None, valid_len=None):
+                 state_sink: Optional[StateSink] = None, valid_len=None,
+                 remat: bool = False):
+    """The segment's repeats in order.  ``remat``: each repeat's
+    activations are recomputed in the backward pass instead of kept, as
+    ``jax.checkpoint`` around the reference's scan body does."""
     for r in range(seg.repeats):
-        for ci, spec in enumerate(seg.cycle):
-            lc = _index(seg_cache[f"c{ci}"], r) if seg_cache else None
-            h = _apply_layer(cfg, spec, _index(seg_p[f"c{ci}"], r), h,
-                             positions=positions, cache=lc, impl=impl,
-                             paged_tables=paged_tables,
-                             window_tables=window_tables, key=(si, ci, r),
-                             state_sink=state_sink, valid_len=valid_len)
+        def body(h, r=r):
+            for ci, spec in enumerate(seg.cycle):
+                lc = _index(seg_cache[f"c{ci}"], r) if seg_cache else None
+                h = _apply_layer(cfg, spec, _index(seg_p[f"c{ci}"], r), h,
+                                 positions=positions, cache=lc, impl=impl,
+                                 paged_tables=paged_tables,
+                                 window_tables=window_tables,
+                                 key=(si, ci, r), state_sink=state_sink,
+                                 valid_len=valid_len)
+            return h
+
+        h = (checkpoint(body, h, use_reentrant=False,
+                        preserve_rng_state=False) if remat else body(h))
     return h
 
 
@@ -422,7 +429,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             paged_tables: Optional[torch.Tensor] = None,
             window_tables: Optional[torch.Tensor] = None,
             state_sink: Optional[StateSink] = None,
-            valid_len: Optional[int] = None) -> tuple:
+            valid_len: Optional[int] = None,
+            remat: Optional[bool] = None) -> tuple:
     """Returns (logits [B, S, padded_vocab], cache).
 
     tokens: [B, S] (decode: [B, 1]).  positions: [S] int32 absolute
@@ -441,9 +449,29 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     ``cache`` a ``lane_view``.  ``valid_len`` (prefill only): rows at or
     past it are padding (a bucketed prompt's tail, a final chunk's); they
     never displace real window-ring rows and the recurrent state freezes
-    past them."""
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+    past them.
+
+    Train mode (``mode="train"``): no cache, positions ``arange(S)``, and
+    ``impl="plain"`` only, since no kernel of this package or of the
+    reference has a backward; the plain layers run under autograd.
+    ``remat`` (train mode only; None means on) recomputes each segment
+    repeat's activations in the backward pass.  Returns (logits, None);
+    the four ported layer kinds have no auxiliary loss."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    train = mode == "train"
+    remat = train if remat is None else remat
+    if train:
+        if impl != "plain":
+            raise ValueError(
+                f"train mode runs impl='plain', got {impl!r}: no kernel "
+                "of this package or of the reference has a backward")
+        if (cache is not None or paged_tables is not None
+                or window_tables is not None or valid_len is not None):
+            raise ValueError("train mode takes no cache, tables or "
+                             "valid_len")
+    elif remat:
+        raise ValueError("remat applies to train mode only")
     _check_supported(cfg)
     S = tokens.shape[1]
     h = params["embed"][tokens.long()]
@@ -451,7 +479,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
     if positions is None:
         positions = (torch.arange(S, dtype=torch.int32, device=h.device)
-                     if mode == "prefill"
+                     if mode != "decode"
                      else torch.zeros((), dtype=torch.int32, device=h.device))
 
     for si, seg in enumerate(cfg.segments()):
@@ -460,7 +488,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                          seg_cache=cache[f"seg{si}"] if cache else None,
                          impl=impl, paged_tables=paged_tables,
                          window_tables=window_tables,
-                         state_sink=state_sink, valid_len=valid_len)
+                         state_sink=state_sink, valid_len=valid_len,
+                         remat=remat)
 
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]

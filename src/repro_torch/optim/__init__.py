@@ -1,0 +1,6 @@
+"""AdamW and learning-rate schedules: the port of ``repro.optim`` but
+``compression`` (multi-device, ROADMAP queue 1 item 9)."""
+
+from .adamw import (AdamWConfig, clip_by_global_norm, global_norm,
+                    init_state, update)
+from .schedules import SCHEDULES, constant, warmup_cosine, wsd

@@ -1,2 +1,2 @@
-from .telemetry import ServeStep, ServeTelemetry
+from .telemetry import ServeStep, ServeTelemetry, Telemetry
 from .elastic import ElasticController

@@ -1,4 +1,10 @@
-"""Serving telemetry: the part of ``repro.runtime.telemetry.ServeTelemetry``
+"""Training and serving telemetry.
+
+``Telemetry`` is the reference's training telemetry (step times, losses,
+stragglers: a step slower than 1.5x the median of the last 50, once 10
+are in), copied.
+
+Serving telemetry: the part of ``repro.runtime.telemetry.ServeTelemetry``
 that the continuous-batching engine records each step (slot occupancy,
 block-pool pressure, residency overall and by cache group, emitted
 tokens, step time), plus the split of each step's host-clock time into
@@ -18,6 +24,33 @@ import statistics
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, ClassVar
+
+
+@dataclass
+class Telemetry:
+    window: int = 50
+    straggler_factor: float = 1.5
+    steps: list = field(default_factory=list)      # (step, seconds, loss)
+    stragglers: list = field(default_factory=list)
+
+    def record(self, step: int, seconds: float, loss: float) -> None:
+        self.steps.append((step, seconds, loss))
+        recent = [s for _, s, _ in self.steps[-self.window:]]
+        if len(recent) >= 10:
+            med = statistics.median(recent)
+            if seconds > self.straggler_factor * med:
+                self.stragglers.append((step, seconds, med))
+
+    def median_ms(self) -> float:
+        if not self.steps:
+            return 0.0
+        return statistics.median(s for _, s, _ in self.steps) * 1e3
+
+    def n_stragglers(self) -> int:
+        return len(self.stragglers)
+
+    def losses(self) -> list:
+        return [l for _, _, l in self.steps]
 
 
 @dataclass

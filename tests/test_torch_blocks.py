@@ -54,6 +54,25 @@ def test_rms_norm_matches_jax():
     _close(blocks.rms_norm(tx, ts, 1e-6), jblocks.rms_norm(jx, js, 1e-6))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 9, 64), (3, 1, 64)],
+                         ids=["prefill", "decode"])
+def test_rms_norm_forward_is_the_plain_formula(shape, dtype):
+    """The ``autograd.Function`` leaves serving's outputs as they were:
+    bit for bit the plain formula, on prefill and decode rows."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                         * 3).to(dtype)
+    s = torch.from_numpy(rng.standard_normal(64).astype(np.float32)
+                         * 0.1).to(dtype)
+    xf = x.float()
+    rstd = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + 1e-6)
+    plain = (xf * rstd * (1.0 + s.float())).to(dtype)
+    with torch.inference_mode():
+        got = blocks.rms_norm(x, s, 1e-6)
+    assert got.dtype == dtype and torch.equal(got, plain)
+
+
 @pytest.mark.parametrize("batched_positions", [False, True])
 def test_apply_rope_matches_jax(batched_positions):
     rng = np.random.default_rng(1)
