@@ -93,6 +93,10 @@ exit code:
    ``paper-mlp`` (the paper's demo config: 8 layers, d_model 512, MHA with
    8 heads of hd 64) once at full size from its plan, under the same
    token gate and launch counting, and runs the same loop.
+   sampler — after ``kernel_timing``: the sampler of one batched decode
+   step (every lane's key and ``sample_lanes``) at 4 lanes of each served
+   vocabulary, its kernel launches per step (one profiled call) and its
+   time by CUDA events.
 6. serve_modes — after each path's ``serve``, the same trace (reduced
    model first) in the engine's two other modes, in f32, each request
    against phase ``serve``'s plain tokens under the same margin rule:
@@ -102,9 +106,34 @@ exit code:
    attention is the plain gather, paged launches from the decode steps
    only) and bucketed dense lanes (flash per attention layer and prefill
    or lane decode step, no paged launch).
+   sample_spec — after each path's ``serve_modes``, the same trace at full
+   width in f32 under the decode policies, each kernel-path run with the
+   launch counters zeroed just before it and read just after, the counts
+   held to formulas (paged: drafted tokens x the attention layers below
+   the draft cap, plus attention layers x batched decode steps; flash:
+   attention layers x whole prefills; scans: recurrent layers x (prefills
+   + verify passes, counted by wrapping the verify step)): (a) greedy
+   speculation (``speculate=4``) against phase ``serve``'s plain tokens
+   under the margin rule, drafts made and ``rewound == drafted -
+   accepted``; (b) sampled paged decoding (temperature 0.8, top-k 40,
+   top-p 0.95, seed 1000 + i) against the same engine with
+   ``impl="plain"``, identical or, at the first divergence, the plain
+   path's top-two gap of the filtered tempered logits plus the request's
+   Gumbel noise under 1e-3; (c) (b) with ``speculate=4``, identical; (a)
+   and (c) serve the first 4 prompts for 16 tokens each (a speculative
+   round drafts and verifies one lane at a time, host-bound, and the full
+   trace would take the script past its limit); (d)
+   lazy pricing over a 32-block pool (the self-sized one holds 128):
+   phase ``serve``'s plain tokens under the margin rule, at least one
+   preemption, ``total_preemptions == scheduler.preemptions``, no block,
+   ring or state slot leaked (``check_no_leaks``).  Mamba-2 holds no
+   blocks, so (d) is skipped for it with that reason.  The phase prints
+   its wall time.
 7. timing  — each trace in bf16: tokens/s, mean decode step and prefill,
    peak memory, the trace once more untraced in the chunked mode (tokens/s,
-   mean decode and chunk step), and a repeat under ``torch.profiler``
+   mean decode and chunk step), (c) of phase ``sample_spec`` in bf16,
+   untraced (tokens/s, acceptance rate, ms per speculative round),
+   and a repeat under ``torch.profiler``
    (device time by kernel name, the device's busy share, and each port
    kernel's device time per launch on the path, with the kernel functions
    it ran: mamba2's must be the SSD kernel's tensor-core body only).
@@ -134,9 +163,9 @@ exit code:
 Then the ``{"kernels": [...]}`` summary line (paged and flash attention at
 TinyLlama's hd 64, with recurrentgemma's hd 256 beside them; every kernel
 with its long shape; launches summed over every full-width run of phases
-``serve``, ``serve_modes`` and ``adapt``, and by run), the card's ``name,
-power.limit`` line, and last
-``{"ok": true, "device": ...}``.  The build phase also counts each kernel
+``serve``, ``serve_modes``, ``sample_spec`` and ``adapt``, and by run),
+the wall time of each phase, the card's ``name, power.limit`` line, and
+last ``{"ok": true, "device": ...}``.  The build phase also counts each kernel
 function's tensor-core instructions (``cuobjdump -sass``).  Bounds use the
 H100 SXM data-sheet peaks: 3.35 TB/s of device memory and 989 TFLOP/s of
 dense bf16 tensor-core math (the SSD kernel's bf16 body), both read from
@@ -170,6 +199,19 @@ BLOCK = 16
 STAGGER = 2
 MARGIN = 1e-3
 PAGED = {"paged": True}
+# phase sample_spec: per-request sampling (seed SAMPLE_SEED + i), the
+# draft depth, and a pool small enough that lazy pricing preempts (the
+# self-sized paged pool of TinyLlama and recurrentgemma holds 128 blocks)
+SAMPLED = {"temperature": 0.8, "top_k": 40, "top_p": 0.95}
+SAMPLE_SEED = 1000
+SPECULATE = 4
+LAZY_BLOCKS = 32
+# the speculative runs serve the first SPEC_PROMPTS prompts for SPEC_NEW
+# tokens each: a round drafts and verifies one lane at a time, about four
+# forward passes of host launches for one to five tokens, so the whole
+# trace would take the script past its time limit
+SPEC_PROMPTS = 4
+SPEC_NEW = 16
 # the engine's other modes, run in phase serve_modes: the README's serving
 # example (bucketed paged lanes, 16-row chunks) and bucketed dense lanes
 SERVE_MODES = {
@@ -662,19 +704,23 @@ def make_prompts(cfg, dev, seed: int) -> list:
 
 
 def serve_trace(cfg, params, prompts, dev, dtype, max_new=MAX_NEW,
-                mode=PAGED, plan=None):
-    """Serve ``prompts`` through the kernel engine in ``mode`` (the
-    engine's options; the paged mode by default), sized by ``plan`` when
-    given (then neither ``kv_len`` nor ``n_slots`` is passed), else at
-    KV_LEN x N_SLOTS.  Returns (engine, results);
-    ``engine.ring_blocks_freed`` counts the window-ring blocks that fell
-    behind the window during the run."""
-    from repro_torch.serve import ContinuousEngine
+                mode=PAGED, plan=None, sampled: bool = False,
+                impl: str = "kernel"):
+    """Serve ``prompts`` through the engine in ``mode`` (the engine's
+    options; the paged mode by default), sized by ``plan`` when given
+    (then neither ``kv_len`` nor ``n_slots`` is passed), else at KV_LEN x
+    N_SLOTS, request i sampling with SAMPLED and seed SAMPLE_SEED + i when
+    ``sampled``.  Returns (engine, results); ``engine.ring_blocks_freed``
+    counts the window-ring blocks that fell behind the window during the
+    run, and ``engine.verify_passes`` the speculative verify passes (the
+    engine keeps no counter of either)."""
+    from repro_torch.serve import ContinuousEngine, SamplingParams
     sizing = ({"plan": plan} if plan is not None
               else {"kv_len": KV_LEN, "n_slots": N_SLOTS})
-    eng = ContinuousEngine(cfg, params, block_size=BLOCK, impl="kernel",
+    eng = ContinuousEngine(cfg, params, block_size=BLOCK, impl=impl,
                            dtype=dtype, device=dev, **sizing, **mode)
     eng.ring_blocks_freed = 0
+    eng.verify_passes = 0
     slide = eng.allocator.extend_window
 
     def counted_slide(slot, n_tokens_total, **kw):
@@ -683,16 +729,27 @@ def serve_trace(cfg, params, prompts, dev, dtype, max_new=MAX_NEW,
         return fresh, freed
 
     eng.allocator.extend_window = counted_slide
+    verify = getattr(eng, "_verify_step", None)
+    if verify is not None:
+        def counted_verify(*args):
+            eng.verify_passes += 1
+            return verify(*args)
+
+        eng._verify_step = counted_verify
     for i, p in enumerate(prompts):
-        eng.submit(p, max_new, rid=i, arrival=i * STAGGER)
+        sp = (SamplingParams(**SAMPLED, seed=SAMPLE_SEED + i) if sampled
+              else None)
+        eng.submit(p, max_new, rid=i, arrival=i * STAGGER, sampling=sp)
     try:
         return eng, eng.run()
     finally:
-        # the wrapper closes over the engine: drop it, so that no
+        # the wrappers close over the engine: drop them, so that no
         # reference cycle keeps the engine's weights on the card until the
         # garbage collector runs (they would count in the next path's peak
         # memory)
         del eng.allocator.extend_window
+        if verify is not None:
+            eng._verify_step = verify
 
 
 def plain_tokens(cfg, params, prompts, dev, dtype,
@@ -964,6 +1021,235 @@ def phase_serve_modes(dev, served: dict) -> dict:
     return out
 
 
+def draft_attention_layers(cfg, draft_layers: int) -> int:
+    """Attention layers among those a ``layer_cap=draft_layers`` pass runs
+    (whole cycle repeats within a segment, as ``lm.forward`` rounds)."""
+    n, remaining = 0, draft_layers
+    for seg in cfg.segments():
+        run = (min(seg.repeats, -(-remaining // len(seg.cycle)))
+               if remaining > 0 else 0)
+        remaining -= run * len(seg.cycle)
+        n += run * sum(1 for spec in seg.cycle
+                       if spec.mixer in ("global", "local"))
+    return n
+
+
+def expected_spec_launches(cfg, eng) -> dict:
+    """Each kernel's launches in one run, from the trace: paged attention
+    once per attention layer below the draft cap and drafted token, and
+    per attention layer and batched decode step; flash per attention
+    layer and whole prefill; each scan per recurrent layer and prefill or
+    verify pass (the draft's recurrent layers take the one-row step, and
+    a verify pass reads the paged tables through the plain gather)."""
+    tel = eng.telemetry
+    mixers = [s.mixer for s in cfg.layers()]
+    n_attn = sum(1 for m in mixers if m in ("global", "local"))
+    prefills = sum(s.prefills for s in tel.steps)
+    batched = 0 if eng.speculate else \
+        sum(1 for s in tel.steps if s.active_slots)
+    drafted, passes = tel.total_drafted(), eng.verify_passes
+    return {"paged_attention": n_attn * batched + drafted *
+            draft_attention_layers(cfg, eng.draft_layers),
+            "flash_attention": n_attn * prefills,
+            "ssd_scan": mixers.count("ssd") * (prefills + passes),
+            "rglru_scan": mixers.count("rglru") * (prefills + passes)}
+
+
+def sampled_margin(cfg, params, prompt, ref, div, seed, dev) -> float:
+    """The plain path's top-two gap of the tempered, filtered logits plus
+    the request's Gumbel noise for the token at index ``div`` of ``ref``
+    (decided at cache position len(prompt) + div): the margin a rounding
+    difference would have to cross to flip that sampled token."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serve import sampling
+    seq = torch.tensor([prompt + ref[:div]], device=dev)
+    logits, _ = lm.forward(cfg, params, seq, mode="prefill", impl="plain")
+    row = logits[0, -1, :cfg.vocab_size].float() / SAMPLED["temperature"]
+    key = sampling.token_key(sampling.prng_key(seed, dev), len(prompt) + div)
+    z = sampling.filter_logits(row, SAMPLED["top_k"], SAMPLED["top_p"]) + \
+        sampling.gumbel(key, cfg.vocab_size)
+    top2 = z.topk(2).values
+    return (top2[0] - top2[1]).item()
+
+
+def hold_sampled(cfg, params, prompts, got, ref, dev, margin_rule: bool,
+                 max_new: int = MAX_NEW) -> list:
+    """Per request: the kernel path's sampled tokens against the plain
+    path's (``ref``).  Identical, or (``margin_rule``) at the first
+    divergence the plain path's sampled margin under MARGIN."""
+    rows = []
+    for rid, p in enumerate(prompts):
+        a, b = got[rid], ref[rid]
+        check(len(a) == len(b) == max_new, f"request {rid}: {len(a)} tokens")
+        div = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                   None)
+        row = {"rid": rid, "identical": div is None,
+               "divergence_index": div, "margin": None, "ok": True}
+        if div is not None:
+            row["margin"] = sampled_margin(cfg, params, p, b, div,
+                                           SAMPLE_SEED + rid, dev)
+            row["ok"] = margin_rule and row["margin"] < MARGIN
+        rows.append(row)
+    return rows
+
+
+def phase_sample_spec(dev, served: dict) -> dict:
+    """The path's trace under the decode policies, in f32 at full width,
+    every kernel-path run with the launch counters zeroed just before it
+    and read just after: (a) greedy speculation (``speculate=4``, paged)
+    against the plain B=1 engine's tokens of phase ``serve`` under the
+    margin rule, with drafts made and ``rewound == drafted - accepted``;
+    (b) sampled paged decoding (SAMPLED, one seed per request) against the
+    same engine with ``impl="plain"``, identical or under the sampled
+    margin rule; (c) (b) with ``speculate=4``, identical; (d) lazy pricing
+    over LAZY_BLOCKS blocks (at least one preemption; ``total_preemptions
+    == scheduler.preemptions``, no leak) against phase ``serve``'s plain
+    tokens.  (a) and (c) serve the first SPEC_PROMPTS prompts for SPEC_NEW
+    tokens.  Launch counts equal ``expected_spec_launches``.  Returns
+    {run: launches} of the kernel-path runs."""
+    import torch
+    cfg, params = served["cfg"], served["params"]
+    counters = launch_counters()
+    has_blocks = any(s.mixer in ("global", "local") for s in cfg.layers())
+    spec = {**PAGED, "speculate": SPECULATE}
+    # run -> (engine options, sampled?, prompts, new tokens)
+    short = served["prompts"][:SPEC_PROMPTS]
+    runs = {"greedy_spec": (spec, False, short, SPEC_NEW),
+            "sampled": (PAGED, True, served["prompts"], MAX_NEW),
+            "sampled_spec": (spec, True, short, SPEC_NEW)}
+    if has_blocks:
+        runs["lazy"] = ({**PAGED, "pricing": "lazy",
+                         "cache_blocks": LAZY_BLOCKS}, False,
+                        served["prompts"], MAX_NEW)
+    t0 = time.perf_counter()
+    out = {}
+    for name, (mode, sampled, prompts, max_new) in runs.items():
+        for fn in counters.values():
+            fn.launches = 0
+        eng, results = serve_trace(cfg, params, prompts, dev, torch.float32,
+                                   max_new, mode, sampled=sampled)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        expect = expected_spec_launches(cfg, eng)
+        tel = eng.telemetry
+        accepted = sum(s.accepted for s in tel.steps)
+        if sampled:
+            for fn in counters.values():
+                fn.launches = 0
+            plain_eng, plain = serve_trace(cfg, params, prompts, dev,
+                                           torch.float32, max_new, mode,
+                                           sampled=True, impl="plain")
+            check(all(fn.launches == 0 for fn in counters.values()),
+                  f"{name}: the plain path launched a kernel")
+            check_clean(plain_eng)
+            rows = hold_sampled(cfg, params, prompts, results, plain, dev,
+                                not eng.speculate, max_new)
+        else:
+            rows = hold_against_plain(cfg, params, prompts, results,
+                                      served["refs"], dev, max_new)
+        emit("sample_spec", arch=cfg.name, run=name, options=mode,
+             sampling=SAMPLED if sampled else None, dtype="float32",
+             prompts=len(prompts), max_new=max_new,
+             requests=rows, launches=launches, expected_launches=expect,
+             verify_passes=eng.verify_passes, drafted=tel.total_drafted(),
+             accepted=accepted, accept_rate=tel.accept_rate(),
+             rewound=tel.total_rewound_tokens(),
+             preemptions=tel.total_preemptions(),
+             scheduler_preemptions=eng.scheduler.preemptions,
+             n_blocks=eng.allocator.n_blocks)
+        check(launches == expect,
+              f"{name}: launches {launches} != expected {expect}")
+        check(all(r["ok"] for r in rows), f"{name}: tokens diverged: {rows}")
+        if eng.speculate:
+            check(tel.total_drafted() > 0, f"{name}: nothing drafted")
+            check(tel.total_rewound_tokens() ==
+                  tel.total_drafted() - accepted,
+                  f"{name}: rewound != drafted - accepted")
+        if name == "lazy":
+            check(tel.total_preemptions() == eng.scheduler.preemptions >= 1,
+                  f"lazy: {eng.scheduler.preemptions} preemptions")
+        check_clean(eng)
+        eng.allocator.check_no_leaks()
+        out[name] = launches
+    if not has_blocks:
+        emit("sample_spec", arch=cfg.name, run="lazy", skipped=True,
+             reason="the model holds no blocks (recurrent state slots "
+                    "only), so there is no pool to oversubscribe")
+    emit("sample_spec", arch=cfg.name, seconds=time.perf_counter() - t0)
+    return out
+
+
+def time_sample_spec(cfg, params, prompts, dev) -> dict:
+    """Run (c) of phase ``sample_spec`` once more in bf16, untraced, after
+    a short warm-up: tokens/s, the acceptance rate and the mean ms per
+    speculative round (a lane's draft, verify, accept and rewind)."""
+    import torch
+    mode = {**PAGED, "speculate": SPECULATE}
+    serve_trace(cfg, params, prompts[:2], dev, torch.bfloat16, 4, mode,
+                sampled=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng, results = serve_trace(cfg, params, prompts[:SPEC_PROMPTS], dev,
+                               torch.bfloat16, SPEC_NEW, mode, sampled=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tel = eng.telemetry
+    rounds = sum(len(s.active_slots) for s in tel.steps)
+    n_tokens = sum(len(v) for v in results.values())
+    return {"options": mode, "sampling": SAMPLED, "tokens": n_tokens,
+            "wall_seconds": wall, "tokens_per_s": n_tokens / wall,
+            "accept_rate": tel.accept_rate(),
+            "drafted": tel.total_drafted(), "rounds": rounds,
+            "verify_passes": eng.verify_passes,
+            "ms_per_round": sum(s.decode_seconds for s in tel.steps)
+            / rounds * 1e3,
+            "mean_prefill_ms": tel.mean_prefill_ms()}
+
+
+def phase_sampler(dev) -> dict:
+    """The sampler of one batched decode step (``token_key`` of every
+    lane's next position and ``sample_lanes``) at N_SLOTS lanes of each
+    served vocabulary: its kernel launches per step (one profiled call)
+    and its time per step by CUDA events.  Runs before any serve trace,
+    for the profiler's sake (see ``phase_kernel_timing``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.serve import sampling
+    out = {}
+    for arch in (ARCH, SSM_ARCH, RG_ARCH):
+        vocab = configs.get(arch).vocab_size
+        gen = torch.Generator(device=dev).manual_seed(5)
+        row = torch.randn((N_SLOTS, vocab), generator=gen, device=dev)
+        keys = torch.stack([sampling.prng_key(SAMPLE_SEED + i, dev)
+                            for i in range(N_SLOTS)])
+        pos = torch.arange(N_SLOTS, dtype=torch.int32, device=dev) + 100
+        temp = torch.full((N_SLOTS,), SAMPLED["temperature"], device=dev)
+        topk = torch.full((N_SLOTS,), SAMPLED["top_k"], dtype=torch.int64,
+                          device=dev)
+        topp = torch.full((N_SLOTS,), SAMPLED["top_p"], device=dev)
+
+        def step():
+            return sampling.sample_lanes(
+                row, sampling.token_key(keys, pos.long() + 1), temp, topk,
+                topp)
+
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        launches = sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+        out[arch] = {"vocab": vocab, "lanes": N_SLOTS,
+                     "launches_per_step": launches,
+                     "ms_per_step_events": time_ms(step, iters=20)}
+    emit("sampler", **out)
+    return out
+
+
 def check_clean(eng) -> None:
     """After a run: the allocator's invariants hold and no block, window
     ring or state slot is left in use."""
@@ -986,22 +1272,26 @@ def _leaves(tree):
 def profile_serve(cfg, params, prompts, dev, untraced_wall: float) -> dict:
     """The same bf16 trace once more under ``torch.profiler``: device time
     by kernel name, the device's busy share of the traced and of the
-    untraced wall time, and the tracing overhead."""
+    untraced wall time, and the tracing overhead.  Only the CUDA activity
+    is recorded: nothing here reads the CPU operator events, and they
+    multiply the profiler's own processing time (minutes over the three
+    paths)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         serve_trace(cfg, params, prompts, dev, torch.bfloat16)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
 
     # kernel events only: the operator events that launched them carry
     # the same device time again
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    processing = time.perf_counter() - t1
     busy_us = sum(device_us(e) for e in events)
     top = sorted(events, key=device_us, reverse=True)[:12]
     # the port's kernels by name: their device time per launch on this
@@ -1019,6 +1309,8 @@ def profile_serve(cfg, params, prompts, dev, untraced_wall: float) -> dict:
     return {
         "traced_wall_seconds": wall,
         "tracing_overhead_seconds": wall - untraced_wall,
+        # host time to stop the profiler and aggregate its events
+        "profiler_processing_seconds": processing,
         "device_busy_seconds": busy_us / 1e6,
         "device_busy_share_traced": busy_us / 1e6 / wall,
         # the kernels do the same work untraced, so this is the busy share
@@ -1064,6 +1356,7 @@ def time_serve(dev, served: dict) -> tuple:
                  torch.cuda.max_memory_allocated(dev)}
     serve["paged_bucket_chunk"] = time_mode(
         cfg, params, prompts, dev, SERVE_MODES["paged_bucket_chunk"])
+    serve["sampled_spec"] = time_sample_spec(cfg, params, prompts, dev)
     serve["profile"] = profile_serve(cfg, params, prompts, dev, wall)
     return serve, params
 
@@ -1594,6 +1887,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     phase = "device"
+    t_start = time.perf_counter()
+    seconds: dict = {}
+
+    def done(name: str, since: float) -> float:
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - since
+        return time.perf_counter()
+
     try:
         smi = nvidia_smi()
         emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
@@ -1615,10 +1915,16 @@ def main() -> int:
              tensor_core_instructions={name: mma_counts(name)
                                        for name in _build.SOURCES})
 
+        t = done("device+build", t_start)
         phase = "kernels"
         errs = phase_kernels(dev)
+        t = done("kernels", t)
         phase = "kernel_timing"
         measured = phase_kernel_timing(dev)
+        t = done("kernel_timing", t)
+        phase = "sampler"
+        phase_sampler(dev)
+        t = done("sampler", t)
         timing, timing_rg = measured[ARCH], measured[RG_ARCH]
         timing.update(measured["scans"])
         # one path after the other, so that neither path's weights count
@@ -1635,11 +1941,18 @@ def main() -> int:
                 by_path[arch] = served["launches"]
                 phase = "adapt"
                 phase_adapt(served, cache)
+                t = done("serve+adapt", t)
                 phase = "serve_modes"
                 for mode, counts in phase_serve_modes(dev, served).items():
                     by_path[f"{arch}/{mode}"] = counts
+                t = done("serve_modes", t)
+                phase = "sample_spec"
+                for run, counts in phase_sample_spec(dev, served).items():
+                    by_path[f"{arch}/{run}"] = counts
+                t = done("sample_spec", t)
                 phase = "timing"
                 timing_phase(dev, served)
+                t = done("timing", t)
             # the paper's own demo config, served once at its full size
             # (MHA: one query head per KV head) from its plan
             phase = "adapt"
@@ -1652,8 +1965,12 @@ def main() -> int:
         # each kernel's launches over the paths' runs, and by path
         launches = {name: sum(p[name] for p in by_path.values())
                     for name in launch_counters()}
+        t = done("serve+adapt", t)
         phase = "train"
         phase_train(dev)
+        done("train", t)
+        emit("wall", seconds=seconds,
+             total_seconds=time.perf_counter() - t_start)
     except Exception as exc:  # report which phase failed, then fail
         traceback.print_exc()
         emit(phase, ok=False, error=f"{type(exc).__name__}: {exc}")

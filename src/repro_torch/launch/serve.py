@@ -2,7 +2,11 @@
 dense per-slot lanes or the paged KV cache (window block rings for
 sliding-window layers, and per-lane recurrent state slabs for mamba2's and
 recurrentgemma's recurrent layers), with whole, bucketed (``--bucket``) or
-chunked (``--chunk-prefill C``, paged only) prefill.
+chunked (``--chunk-prefill C``, paged only) prefill, per-request sampling
+(``--temperature``, ``--top-k``, ``--top-p``; request i samples with seed
+``--sample-seed + i``), self-speculative decoding (``--speculate K``,
+``--draft-layers L``, paged only) and worst-case or lazy admission pricing
+(``--pricing``, ``--cache-blocks`` to undersize the pool).
 
 Usage (on the CUDA card; ``--device cpu`` runs the plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
@@ -17,6 +21,11 @@ Usage (on the CUDA card; ``--device cpu`` runs the plain versions):
         --arch recurrentgemma-2b --continuous --paged
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --continuous --paged --adapt --devices 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        --continuous --paged --speculate 4 --temperature 0.8 --top-k 40 \
+        --top-p 0.95
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        --continuous --paged --pricing lazy --cache-blocks 40
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --reduced --batch 4 --prompt-len 16 --max-new 32 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
@@ -50,7 +59,7 @@ from repro_torch import configs
 from repro_torch.core import H100_SXM, Topology, adapt_plan, compile_plan
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
-from repro_torch.serve import ContinuousEngine, Engine
+from repro_torch.serve import ContinuousEngine, Engine, SamplingParams
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -89,12 +98,20 @@ def _continuous(args, cfg, params, gen, device, dtype):
                            n_slots=args.batch, paged=args.paged,
                            bucket_prompts=args.bucket,
                            prefill_chunk=args.chunk_prefill,
+                           pricing=args.pricing,
+                           cache_blocks=args.cache_blocks,
+                           speculate=args.speculate,
+                           draft_layers=args.draft_layers,
                            dtype=dtype, device=device, plan=plan)
     for i in range(args.requests):
         prompt = torch.randint(0, cfg.vocab_size, (args.prompt_len,),
                                generator=gen, device=device)
+        # per-request sampling (temperature 0 stays bitwise greedy)
+        sp = (SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                             top_p=args.top_p, seed=args.sample_seed + i)
+              if args.temperature > 0 else None)
         eng.submit(prompt.tolist(), max_new_tokens=args.max_new, rid=i,
-                   arrival=i * args.stagger)
+                   arrival=i * args.stagger, sampling=sp)
     t0 = time.perf_counter()
     results = eng.run()
     dt = time.perf_counter() - t0
@@ -123,6 +140,15 @@ def _continuous(args, cfg, params, gen, device, dtype):
               f"block_size={eng.block_size}, "
               f"{eng.allocator.layout.state_slots} state slots) "
               f"peak by group: {by_group}")
+    if args.speculate:
+        print(f"[serve-cb] speculative: k={args.speculate} "
+              f"draft_layers={eng.draft_layers} "
+              f"accept_rate={tel.accept_rate():.2f} "
+              f"({tel.total_drafted()} drafted, "
+              f"{tel.total_rewound_tokens()} rows rewound)")
+    if eng.scheduler.preemptions:
+        print(f"[serve-cb] preemptions={eng.scheduler.preemptions} "
+              f"(lazy-pricing evict-and-requeue)")
     if results:
         print("first request:", results[0])
     if args.adapt:
@@ -176,6 +202,32 @@ def main(argv=None):
     ap.add_argument("--chunk-prefill", type=int, default=0, metavar="C",
                     help="continuous+paged: prefill prompts in C-token "
                          "chunks interleaved with decode")
+    ap.add_argument("--pricing", choices=("worst", "lazy"), default="worst",
+                    help="continuous admission pricing: reserve the full "
+                         "worst case (default) or oversubscribe and "
+                         "preempt-requeue on mid-decode exhaustion")
+    ap.add_argument("--cache-blocks", type=int, default=None, metavar="N",
+                    help="continuous: override the self-sized block pool "
+                         "(undersize it to exercise admission backpressure)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="continuous: sampling temperature (0 = exact "
+                         "greedy argmax, the default)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="continuous: keep only the k highest logits "
+                         "(0 disables)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="continuous: nucleus sampling mass (1.0 disables)")
+    ap.add_argument("--sample-seed", type=int, default=0,
+                    help="continuous: base PRNG seed for sampling (request "
+                         "i uses sample-seed + i; --seed seeds the weights)")
+    ap.add_argument("--speculate", type=int, default=0, metavar="K",
+                    help="continuous+paged: self-speculative decoding: "
+                         "draft K tokens per round with a truncated-layer "
+                         "pass, verify in one batched step, rewind the "
+                         "paged cache past the rejection point")
+    ap.add_argument("--draft-layers", type=int, default=None, metavar="L",
+                    help="--speculate: layers the draft pass runs "
+                         "(default: half the stack, whole cycles)")
     ap.add_argument("--requests", type=int, default=8,
                     help="continuous: number of requests in the trace")
     ap.add_argument("--stagger", type=int, default=2,

@@ -2,7 +2,8 @@
 sliding-window-attention layers with a dense FFN, Mamba-2 SSD layers and
 RG-LRU layers with a dense FFN: parameter init, caches (dense, per-slot
 dense lanes and paged) and ``forward`` in prefill, chunk-prefill, decode
-and train modes.
+and train modes, with ``layer_cap`` for the truncated draft pass of
+self-speculative decoding.
 
 A port of the matching subset of ``repro.models.lm``.  Parameters and
 caches keep the reference's tree — ``seg{i}/c{j}/{attn,ffn,ssd,rglru}/...``
@@ -14,7 +15,9 @@ tree (or, in a paged decode step, hands them to ``freeze_state_lanes``).
 The reference's functional lane updates (``write_slot_cache``,
 ``lane_view``/``lane_merge``, ``write_state_lanes``) become views and
 in-place writes: a forward through a ``lane_view`` or a ``slot_cache``
-writes the lane itself, so nothing needs merging back.
+writes the lane itself, so nothing needs merging back; for the same
+reason ``snapshot_state_lanes`` copies a lane's state rather than keeping
+a view of it.
 """
 
 from __future__ import annotations
@@ -264,6 +267,27 @@ def lane_view(cfg: ModelConfig, caches: dict, slot: int) -> dict:
     return out
 
 
+def snapshot_state_lanes(cfg: ModelConfig, caches: dict, slot: int) -> list:
+    """Copies (not views) of lane ``slot``'s recurrent state leaves in the
+    paged tree, in ``state_cache_leaves`` order: the pre-draft snapshot of
+    a speculative round.  Only the O(1) lane state is kept; the draft and
+    verify passes write the tree in place, so a view would follow them."""
+    return [{k: t[:, slot].clone() for k, t in leaf.items()}
+            for leaf in state_cache_leaves(cfg, caches)]
+
+
+def restore_state_lanes(cfg: ModelConfig, caches: dict, snapshot: list,
+                        slot: int) -> dict:
+    """Write a ``snapshot_state_lanes`` capture back into lane ``slot``, in
+    place: the rewind after a draft pass advanced the lane's state, or a
+    verify pass advanced it past the accepted tokens.  Returns
+    ``caches``."""
+    for leaf, snap in zip(state_cache_leaves(cfg, caches), snapshot):
+        for k, t in leaf.items():
+            t[:, slot].copy_(snap[k])
+    return caches
+
+
 def zero_state_lane(cfg: ModelConfig, caches: dict, slot: int) -> dict:
     """Zero lane ``slot``'s recurrent state leaves in the paged tree, in
     place (the reference writes a zeroed single-request cache into the
@@ -401,11 +425,12 @@ def _run_segment(cfg: ModelConfig, si: int, seg: Segment, seg_p: dict, h,
                  *, positions, seg_cache, impl: str, paged_tables=None,
                  window_tables=None,
                  state_sink: Optional[StateSink] = None, valid_len=None,
-                 remat: bool = False):
-    """The segment's repeats in order.  ``remat``: each repeat's
+                 remat: bool = False, repeats: Optional[int] = None):
+    """The segment's first ``repeats`` repeats (default all) in order; the
+    others, and their cache rows, are left alone.  ``remat``: each repeat's
     activations are recomputed in the backward pass instead of kept, as
     ``jax.checkpoint`` around the reference's scan body does."""
-    for r in range(seg.repeats):
+    for r in range(seg.repeats if repeats is None else repeats):
         def body(h, r=r):
             for ci, spec in enumerate(seg.cycle):
                 lc = _index(seg_cache[f"c{ci}"], r) if seg_cache else None
@@ -430,7 +455,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             window_tables: Optional[torch.Tensor] = None,
             state_sink: Optional[StateSink] = None,
             valid_len: Optional[int] = None,
-            remat: Optional[bool] = None) -> tuple:
+            remat: Optional[bool] = None,
+            layer_cap: Optional[int] = None) -> tuple:
     """Returns (logits [B, S, padded_vocab], cache).
 
     tokens: [B, S] (decode: [B, 1]).  positions: [S] int32 absolute
@@ -450,6 +476,12 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     past it are padding (a bucketed prompt's tail, a final chunk's); they
     never displace real window-ring rows and the recurrent state freezes
     past them.
+
+    ``layer_cap``: run only the first ``layer_cap`` layers, rounded up to
+    whole cycle repeats within a segment (a cycle is never split), before
+    the final norm and unembedding: the truncated draft pass of
+    self-speculative decoding.  The layers not run, and their cache rows,
+    are left as they are.
 
     Train mode (``mode="train"``): no cache, positions ``arange(S)``, and
     ``impl="plain"`` only, since no kernel of this package or of the
@@ -482,14 +514,21 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                      if mode != "decode"
                      else torch.zeros((), dtype=torch.int32, device=h.device))
 
+    remaining = None if layer_cap is None else max(int(layer_cap), 1)
     for si, seg in enumerate(cfg.segments()):
+        repeats = None
+        if remaining is not None:
+            clen = len(seg.cycle)
+            repeats = (min(seg.repeats, -(-remaining // clen))
+                       if remaining > 0 else 0)
+            remaining -= repeats * clen
         h = _run_segment(cfg, si, seg, params[f"seg{si}"], h,
                          positions=positions,
                          seg_cache=cache[f"seg{si}"] if cache else None,
                          impl=impl, paged_tables=paged_tables,
                          window_tables=window_tables,
                          state_sink=state_sink, valid_len=valid_len,
-                         remat=remat)
+                         remat=remat, repeats=repeats)
 
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]

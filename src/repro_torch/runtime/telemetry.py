@@ -7,7 +7,8 @@ are in), copied.
 Serving telemetry: the part of ``repro.runtime.telemetry.ServeTelemetry``
 that the continuous-batching engine records each step (slot occupancy,
 block-pool pressure, residency overall and by cache group, emitted
-tokens, step time), plus the split of each step's host-clock time into
+tokens, step time, lazy-pricing preemptions, speculative drafts, accepts
+and rewound rows), plus the split of each step's host-clock time into
 its prefill and decode parts, and the chunk steps' share of the prefill
 part; and its bridge to the paper's §3 scheduling assistants
 (``device_interference``, ``assistant_callback``), copied from the
@@ -71,8 +72,15 @@ class ServeStep:
     # residency by cache group: {"global"/"window"/"recurrent": bytes}
     resident_by_group: dict = field(default_factory=dict)
     prefill_seconds: float = 0.0  # admissions, whole prefills, chunks
-    decode_seconds: float = 0.0
+    decode_seconds: float = 0.0   # the batched step, or the rounds
     chunk_seconds: float = 0.0    # the chunk steps alone
+    # lazy pricing's safety net: slots evicted and requeued this step
+    preemptions: int = 0
+    # self-speculative decoding: draft tokens proposed and accepted this
+    # step, and cache rows written then rewound after a rejection
+    drafted: int = 0
+    accepted: int = 0
+    rewound_tokens: int = 0
 
 
 @dataclass
@@ -107,6 +115,10 @@ class ServeTelemetry:
         self._chunk_seconds = 0.0
         self._decode_steps = 0
         self._decode_seconds = 0.0
+        self._total_preemptions = 0
+        self._total_drafted = 0
+        self._total_accepted = 0
+        self._total_rewound = 0
 
     def record_step(self, step: int, seconds: float, active_slots,
                     n_slots: int, blocks_in_use: int, n_blocks: int,
@@ -116,7 +128,9 @@ class ServeTelemetry:
                     resident_by_group: dict = None,
                     prefill_seconds: float = 0.0,
                     decode_seconds: float = 0.0,
-                    chunk_seconds: float = 0.0) -> None:
+                    chunk_seconds: float = 0.0, preemptions: int = 0,
+                    drafted: int = 0, accepted: int = 0,
+                    rewound_tokens: int = 0) -> None:
         self.steps.append(ServeStep(
             step=step, seconds=seconds, active_slots=tuple(active_slots),
             n_slots=n_slots, blocks_in_use=blocks_in_use, n_blocks=n_blocks,
@@ -125,7 +139,9 @@ class ServeTelemetry:
             resident_bytes=resident_bytes, capacity_bytes=capacity_bytes,
             resident_by_group=dict(resident_by_group or {}),
             prefill_seconds=prefill_seconds, decode_seconds=decode_seconds,
-            chunk_seconds=chunk_seconds))
+            chunk_seconds=chunk_seconds, preemptions=preemptions,
+            drafted=drafted, accepted=accepted,
+            rewound_tokens=rewound_tokens))
         # chunk work units are not emitted tokens: only completed prefills
         # (one token each) and decode tokens count
         self._total_tokens += new_tokens + prefills
@@ -146,6 +162,10 @@ class ServeTelemetry:
         if active_slots:
             self._decode_steps += 1
             self._decode_seconds += decode_seconds
+        self._total_preemptions += preemptions
+        self._total_drafted += drafted
+        self._total_accepted += accepted
+        self._total_rewound += rewound_tokens
 
     def _recent(self) -> list:
         return list(self.steps)[-self.window:]
@@ -202,6 +222,25 @@ class ServeTelemetry:
 
     def total_tokens(self) -> int:
         return self._total_tokens
+
+    def total_preemptions(self) -> int:
+        """Whole-run count of lazy-pricing evict-and-requeue preemptions."""
+        return self._total_preemptions
+
+    def accept_rate(self) -> float:
+        """Fraction of drafted speculative tokens the verify pass accepted
+        over the whole run (0 when speculation is off)."""
+        if not self._total_drafted:
+            return 0.0
+        return self._total_accepted / self._total_drafted
+
+    def total_drafted(self) -> int:
+        return self._total_drafted
+
+    def total_rewound_tokens(self) -> int:
+        """Whole-run count of cache rows a draft or verify pass wrote and a
+        rejection rewound (table tail, window ring, recurrent state)."""
+        return self._total_rewound
 
     def tokens_per_sec(self) -> float:
         if self._busy_seconds <= 0:

@@ -2,6 +2,8 @@ from .cache import (AllocatorInvariantError, BlockAllocator, CacheConfig,
                     CacheError, CacheExhausted, PagedKVStore)
 from .engine import (PREFILL_BUCKET_FLOOR, ContinuousEngine, Engine,
                      bucket_length, make_bucketed_prefill_step,
-                     make_chunk_prefill_step, make_paged_decode_step,
-                     make_prefill_step, make_serve_step)
+                     make_chunk_prefill_step, make_draft_decode_step,
+                     make_paged_decode_step, make_prefill_step,
+                     make_serve_step, make_verify_step)
+from .sampling import GREEDY, SamplingParams
 from .scheduler import ActiveSlot, Request, SlotScheduler

@@ -10,12 +10,15 @@ every block returns to the free list when the request finishes.  A model
 with sliding-window layers gives each request a block *ring* instead
 (logical block -> physical block): blocks that fall fully behind ``pos -
 window`` go back to the free list as the request decodes, so a window lane
-pins O(window) blocks whatever its length.  Admission reserves a request's
-worst case (``prompt + max_new`` tokens, a ring at its cap), so decode can
-never run out of blocks.  A model with recurrent (SSD, RG-LRU) layers also
-holds one state slot per live request (its lane's O(1) state slabs),
-accounted apart from the blocks; a model with no attention layer holds no
-blocks at all (``CacheLayout``).
+pins O(window) blocks whatever its length.  Admission may reserve a
+request's worst case (``prompt + max_new`` tokens, a ring at its cap), so
+that decode can never run out of blocks; an admission without a
+reservation (lazy pricing) grows as it goes and can meet
+``CacheExhausted``.  A speculative round rewinds a slot's table and ring
+past its rejected rows (``truncate``, ``truncate_window``).  A model with
+recurrent (SSD, RG-LRU) layers also holds one state slot per live request
+(its lane's O(1) state slabs), accounted apart from the blocks; a model
+with no attention layer holds no blocks at all (``CacheLayout``).
 
 Failures are typed as in the reference: ``CacheExhausted`` (a
 ``MemoryError``) is expected backpressure, ``AllocatorInvariantError`` (an
@@ -363,6 +366,43 @@ class BlockAllocator:
             ring[cur_hi + 1 + i] = b
         return fresh, freed
 
+    def truncate(self, slot: int, n_tokens_total: int) -> list[int]:
+        """Shrink ``slot``'s global table to cover ``n_tokens_total``
+        resident tokens: the speculative rewind past rejected draft rows.
+        Whole tail blocks only are freed (a partly vacated tail block stays:
+        its stale rows sit past the slot's position, where no query reads
+        them, and the next accepted token overwrites them).  Returns the
+        freed block ids; they re-enter the free list so the next growth
+        reclaims them first, in table order."""
+        if slot not in self.tables:
+            raise AllocatorInvariantError(f"slot {slot} has no allocation")
+        if n_tokens_total > self._tokens[slot]:
+            raise AllocatorInvariantError(
+                f"slot {slot}: truncate cannot grow "
+                f"{self._tokens[slot]} -> {n_tokens_total}")
+        table = self.tables[slot]
+        keep = self.config.blocks_for(n_tokens_total) \
+            if self.layout.has_global else len(table)
+        freed = table[keep:]
+        del table[keep:]
+        self._free.extend(reversed(freed))
+        self._tokens[slot] = n_tokens_total
+        return freed
+
+    def truncate_window(self, slot: int, n_tokens_total: int) -> list[int]:
+        """Rewind ``slot``'s window ring: free the ring blocks whose logical
+        index lies wholly past position ``n_tokens_total - 1``.  The low
+        edge stays (a speculative round slides it with ``first_query_pos``
+        at the pre-draft position, so every block a query after the rewind
+        can attend is still resident).  Returns the freed block ids."""
+        if slot not in self.window_tables:
+            raise AllocatorInvariantError(f"slot {slot} has no window ring")
+        ring = self.window_tables[slot]
+        hi = (n_tokens_total - 1) // self.config.block_size
+        freed = [ring.pop(i) for i in sorted(ring, reverse=True) if i > hi]
+        self._free.extend(freed)
+        return freed
+
     def free_slot(self, slot: int) -> int:
         """Return every block of ``slot``, its global table's and its
         ring's, to the free list (in table order, so the next claims reuse
@@ -455,6 +495,23 @@ class BlockAllocator:
             raise AllocatorInvariantError(
                 f"{len(self._state_slots)} state slots in use, layout has "
                 f"{self.layout.state_slots}")
+
+    def check_no_leaks(self) -> None:
+        """With no live slot, every block is free and no ring or state
+        slot is held; then ``check()``."""
+        if self.tables:
+            raise AllocatorInvariantError(
+                f"live tables remain: {sorted(self.tables)}")
+        if self.window_tables:
+            raise AllocatorInvariantError(
+                f"live window rings remain: {sorted(self.window_tables)}")
+        if self._state_slots:
+            raise AllocatorInvariantError(
+                f"live state slots remain: {sorted(self._state_slots)}")
+        if len(self._free) != self.config.n_blocks:
+            raise AllocatorInvariantError(
+                f"{self.config.n_blocks - len(self._free)} blocks leaked")
+        self.check()
 
     # -- physical store ----------------------------------------------------------
     def attach_store(self, store: PagedKVStore,

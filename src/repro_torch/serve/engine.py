@@ -1,10 +1,12 @@
-"""Greedy serving: step factories, the static-batch ``Engine`` and the
+"""Serving: step factories, the static-batch ``Engine`` and the
 continuous-batching ``ContinuousEngine``.
 
-A port of the greedy subset of ``repro.serve.engine``: dense and paged
-lanes, whole, bucketed and chunked prefill.  ``ContinuousEngine`` admits
-queued requests into free decode lanes mid-stream (``SlotScheduler`` +
-``BlockAllocator``) and serves them in one of two regimes:
+A port of ``repro.serve.engine`` but its prefix cache: dense and paged
+lanes; whole, bucketed and chunked prefill; per-request sampling;
+self-speculative decoding; worst-case or lazy admission pricing with
+youngest-slot preemption.  ``ContinuousEngine`` admits queued requests
+into free decode lanes mid-stream (``SlotScheduler`` + ``BlockAllocator``)
+and serves them in one of two regimes:
 
 * ``paged=True`` — each prompt is prefilled whole into a dense
   single-request cache and scattered into the shared page pools (global
@@ -23,6 +25,20 @@ queued requests into free decode lanes mid-stream (``SlotScheduler`` +
   (``lm.init_slot_caches``), each prompt's prefill copied into its lane,
   and each decoding lane stepped as a B=1 decode on its own cache (the
   reference vmaps the same step over the lanes).
+
+Sampling (``submit(..., sampling=SamplingParams(...))``): each lane keeps
+its base key and parameters on the device, and a step samples every lane
+at once (``sampling.sample_lanes``) when any decoding lane samples; when
+all are greedy the steps keep their fused argmax, which the sampler would
+pick bitwise.  ``speculate=K`` (paged only) drafts up to K tokens per lane
+and step with the first ``draft_layers`` layers (``lm.forward(layer_cap=)``),
+scores them in one chunk-shaped verify pass of the full model, accepts by
+rejection sampling (``sampling.speculative_accept``; token-identical to
+greedy decoding under greedy) and rewinds the lane's table, window ring
+and recurrent state past the first rejection.  ``pricing="lazy"``
+reserves only a request's prefill at admission; a mid-decode
+``CacheExhausted`` then preempts the youngest slot and requeues its
+request at the head of the queue (``cache_blocks=`` undersizes the pool).
 
 ``bucket_prompts=True`` right-pads whole prefills to power-of-two buckets
 (``bucket_length``): pad rows are position-masked in the cache and freeze
@@ -50,8 +66,10 @@ from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.runtime.telemetry import ServeTelemetry
 
+from . import sampling as sampling_mod
 from .cache import (BlockAllocator, CacheConfig, CacheExhausted, CacheLayout,
                     PagedKVStore)
+from .sampling import GREEDY, SamplingParams
 from .scheduler import ActiveSlot, Request, SlotScheduler
 
 PREFILL_BUCKET_FLOOR = 8
@@ -63,41 +81,53 @@ def bucket_length(n: int, cap: int, floor: int = PREFILL_BUCKET_FLOOR) -> int:
     return min(max(b, n), cap)
 
 
-def _greedy(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Next token per row from the last position's logits (pad ids cut)."""
-    return logits[:, -1, :cfg.vocab_size].argmax(dim=-1).to(torch.int32)
+def _pick_token(row: torch.Tensor, sample_args) -> torch.Tensor:
+    """Next token from ``[B, vocab]`` last-position logits: the fused
+    argmax when ``sample_args`` is None, else the sample of a B == 1 lane,
+    ``sample_args = (key [2], temperature, top_k, top_p)`` (the sampler
+    picks the argmax bitwise at temperature 0)."""
+    if sample_args is None:
+        return row.argmax(dim=-1).to(torch.int32)
+    key, temp, topk, topp = sample_args
+    return sampling_mod.sample_token(row[0], key, temp, topk, topp)[None]
 
 
 def make_prefill_step(cfg: ModelConfig, impl: str = "kernel"):
-    """prefill(params, cache, tokens [B, S]) -> (next_tok [B], cache)."""
-    def prefill_step(params, cache, tokens):
+    """prefill(params, cache, tokens [B, S], sample_args=None) ->
+    (next_tok [B], cache)."""
+    def prefill_step(params, cache, tokens, sample_args=None):
         logits, cache = lm.forward(cfg, params, tokens, cache=cache,
                                    mode="prefill", impl=impl)
-        return _greedy(logits, cfg), cache
+        return _pick_token(logits[:, -1, :cfg.vocab_size], sample_args), \
+            cache
     return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig, impl: str = "kernel"):
-    """decode(params, cache, tokens [B, 1], pos 0-d) -> (next_tok, cache)."""
-    def serve_step(params, cache, tokens, pos):
+    """decode(params, cache, tokens [B, 1], pos 0-d, sample_args=None) ->
+    (next_tok, cache)."""
+    def serve_step(params, cache, tokens, pos, sample_args=None):
         logits, cache = lm.forward(cfg, params, tokens, positions=pos,
                                    cache=cache, mode="decode", impl=impl)
-        return _greedy(logits, cfg), cache
+        return _pick_token(logits[:, -1, :cfg.vocab_size], sample_args), \
+            cache
     return serve_step
 
 
 def make_bucketed_prefill_step(cfg: ModelConfig, impl: str = "kernel"):
-    """prefill(params, cache, tokens [B, Sb], true_len) -> (next_tok [B],
-    cache).  The prompt is right-padded to a bucket length Sb; causality
-    makes the logits at ``true_len - 1`` exact, ``valid_len=true_len``
-    freezes the recurrent state at the real prompt (and keeps pad rows out
-    of window rings), and the pad rows' cache slots are marked empty
-    (``lm.mask_cache_positions``), so decode never attends them."""
-    def prefill_step(params, cache, tokens, true_len):
+    """prefill(params, cache, tokens [B, Sb], true_len, sample_args=None)
+    -> (next_tok [B], cache).  The prompt is right-padded to a bucket
+    length Sb; causality makes the logits at ``true_len - 1`` exact,
+    ``valid_len=true_len`` freezes the recurrent state at the real prompt
+    (and keeps pad rows out of window rings), and the pad rows' cache
+    slots are marked empty (``lm.mask_cache_positions``), so decode never
+    attends them."""
+    def prefill_step(params, cache, tokens, true_len, sample_args=None):
         logits, cache = lm.forward(cfg, params, tokens, cache=cache,
                                    mode="prefill", impl=impl,
                                    valid_len=true_len)
-        tok = _greedy(logits[:, true_len - 1:true_len], cfg)
+        tok = _pick_token(logits[:, true_len - 1, :cfg.vocab_size],
+                          sample_args)
         return tok, lm.mask_cache_positions(cache, true_len)
     return prefill_step
 
@@ -105,19 +135,20 @@ def make_bucketed_prefill_step(cfg: ModelConfig, impl: str = "kernel"):
 def make_chunk_prefill_step(cfg: ModelConfig, chunk: int,
                             impl: str = "kernel"):
     """chunk(params, caches, piece [1, C], start, rows {"global": [W],
-    "window": [W]}, last_idx, slot, valid) -> (candidate_tok [1], caches).
+    "window": [W]}, last_idx, slot, valid, sample_args=None) ->
+    (candidate_tok [1], caches).
 
     One C-row slice of a prompt, straight against the paged tree: its rows
     are written through the lane's tables (global blocks, window ring),
     the lane's recurrent state slabs carry the scan across slices
     (``lm.lane_view``), attention reads everything resident so far, and
-    the greedy token is read at ``last_idx`` (meaningful on the final
-    slice only).  ``valid`` counts the slice's real rows: a final slice's
-    pad rows freeze the recurrent state, and their K/V rows land past the
+    the token is read at ``last_idx`` (meaningful on the final slice
+    only).  ``valid`` counts the slice's real rows: a final slice's pad
+    rows freeze the recurrent state, and their K/V rows land past the
     lane's context (on the null page where the table does not reach),
     where no query reads them."""
     def chunk_step(params, caches, piece, start, rows, last_idx, slot,
-                   valid):
+                   valid, sample_args=None):
         positions = start + torch.arange(chunk, dtype=torch.int32,
                                          device=piece.device)
         g_row, w_row = rows.get("global"), rows.get("window")
@@ -128,21 +159,26 @@ def make_chunk_prefill_step(cfg: ModelConfig, chunk: int,
             paged_tables=None if g_row is None else g_row[None],
             window_tables=None if w_row is None else w_row[None],
             valid_len=valid)
-        return _greedy(logits[:, last_idx:last_idx + 1], cfg), caches
+        return _pick_token(logits[:, last_idx, :cfg.vocab_size],
+                           sample_args), caches
     return chunk_step
 
 
 def make_paged_decode_step(cfg: ModelConfig, impl: str = "kernel"):
     """decode(params, caches, toks [B], pos [B], tables {"global": [B, W],
     "window": [B, W]} (each present when the model has such layers),
-    active [B] bool) -> (next_toks [B], caches).  One batched step over
-    every lane; each lane writes its row through its table (inactive lanes
-    hold null rows, so their writes land in the scratch page), and
-    ``active`` confines the recurrent state update to the lanes actually
-    decoding: every recurrent layer's new state goes through
-    ``lm.freeze_state_lanes`` as soon as it is computed.  The step waits
-    on nothing from the device."""
-    def decode_step(params, caches, toks, pos, tables, active):
+    active [B] bool, sample_args=None) -> (next_toks [B], caches).  One
+    batched step over every lane; each lane writes its row through its
+    table (inactive lanes hold null rows, so their writes land in the
+    scratch page), and ``active`` confines the recurrent state update to
+    the lanes actually decoding: every recurrent layer's new state goes
+    through ``lm.freeze_state_lanes`` as soon as it is computed.
+    ``sample_args = (base_keys [B, 2], temperature [B], top_k [B], top_p
+    [B])`` turns the fused argmax into the per-lane sampler (the token
+    decided this step sits at ``pos + 1``, which derives its key).  The
+    step waits on nothing from the device."""
+    def decode_step(params, caches, toks, pos, tables, active,
+                    sample_args=None):
         def freeze(key, new):
             lm.freeze_state_lanes(cfg, caches, {key: new}, active)
 
@@ -152,8 +188,67 @@ def make_paged_decode_step(cfg: ModelConfig, impl: str = "kernel"):
                                     paged_tables=tables.get("global"),
                                     window_tables=tables.get("window"),
                                     state_sink=freeze)
-        return _greedy(logits, cfg), caches
+        row = logits[:, -1, :cfg.vocab_size]
+        if sample_args is None:
+            return row.argmax(dim=-1).to(torch.int32), caches
+        keys, temp, topk, topp = sample_args
+        tkeys = sampling_mod.token_key(keys, pos.long() + 1)
+        return sampling_mod.sample_lanes(row, tkeys, temp, topk, topp), \
+            caches
     return decode_step
+
+
+def make_draft_decode_step(cfg: ModelConfig, draft_layers: int,
+                           impl: str = "kernel"):
+    """draft(params, caches, tok [1], pos [1], rows, slot) -> (logits
+    [vocab], caches).
+
+    One decode step of a single lane through its first ``draft_layers``
+    layers (``layer_cap``): the self-speculative draft pass.  The draft
+    token's K/V rows land through the lane's tables where the verify pass
+    rewrites them (a rejected row sits past the lane's rewound position,
+    so no query reads it before the next accepted token overwrites it);
+    the lane's recurrent state advances in place and the engine snapshots
+    and restores it around the draft window.  The engine picks the draft
+    token from the logits (the reference's step samples inside; the
+    port's round draws its drafts' noise at once and skips the sampler on
+    a greedy lane)."""
+    def draft_step(params, caches, tok, pos, rows, slot):
+        g_row, w_row = rows.get("global"), rows.get("window")
+        logits, _ = lm.forward(
+            cfg, params, tok.reshape(1, 1), positions=pos.reshape(1),
+            cache=lm.lane_view(cfg, caches, slot), mode="decode", impl=impl,
+            paged_tables=None if g_row is None else g_row[None],
+            window_tables=None if w_row is None else w_row[None],
+            layer_cap=draft_layers)
+        return logits[0, -1, :cfg.vocab_size], caches
+    return draft_step
+
+
+def make_verify_step(cfg: ModelConfig, width: int, impl: str = "kernel"):
+    """verify(params, caches, toks [width], start, rows, slot, valid) ->
+    (logits [width, vocab], caches).
+
+    One chunk-shaped pass of the full model over ``[x_t, d_1..d_k]``
+    (padded to ``width = speculate + 1``) against the paged tree: the
+    verification step of self-speculative decoding.  Row i's logits are
+    the full model's distribution for draft slot i (row k the bonus
+    token).  ``valid = k + 1`` masks the pad tail: recurrent state freezes
+    past it, and pad-row K/V writes land past the lane's position, where
+    the per-query causal mask keeps them unread until overwritten."""
+    def verify_step(params, caches, toks, start, rows, slot, valid):
+        positions = start + torch.arange(width, dtype=torch.int32,
+                                         device=toks.device)
+        g_row, w_row = rows.get("global"), rows.get("window")
+        logits, _ = lm.forward(
+            cfg, params, toks[None], positions=positions,
+            cache=lm.lane_view(cfg, caches, slot), mode="prefill",
+            impl=impl,
+            paged_tables=None if g_row is None else g_row[None],
+            window_tables=None if w_row is None else w_row[None],
+            valid_len=valid)
+        return logits[0, :, :cfg.vocab_size], caches
+    return verify_step
 
 
 def _check_servable(cfg: ModelConfig) -> None:
@@ -191,7 +286,7 @@ class Engine:
         tok, cache = self._prefill(self.params, cache, prompts)
         out = [tok]
         for t in range(max_new_tokens - 1):
-            pos = torch.tensor(S + t, dtype=torch.int32, device=self.device)
+            pos = torch.full((), S + t, dtype=torch.int32, device=self.device)
             tok, cache = self._decode(self.params, cache, tok[:, None], pos)
             out.append(tok)
         return torch.stack(out, dim=1)
@@ -199,18 +294,29 @@ class Engine:
 
 @dataclass
 class ContinuousEngine:
-    """Continuous-batching greedy engine, dense lanes or a physical paged
-    KV cache.
+    """Continuous-batching engine, dense lanes or a physical paged KV
+    cache.
 
-    Requests are ``submit()``-ed with an arrival step, then ``run()``
-    drives the loop: admit arrived requests into free slots (worst-case
-    block reservation; with ``paged=True`` also a window ring for a model
-    with sliding-window layers and a state slot for a recurrent model),
-    prefill each (whole, bucketed, or in chunks of ``prefill_chunk`` rows,
-    one chunk per engine step), run one decode step over the decoding
-    lanes, retire finished slots and reclaim their blocks, rings and state
-    slots.  The prefix cache, speculation and sampling raise
-    ``NotImplementedError``.
+    Requests are ``submit()``-ed with an arrival step (and optionally
+    their ``SamplingParams``), then ``run()`` drives the loop: admit
+    arrived requests into free slots (priced by ``pricing``; with
+    ``paged=True`` also a window ring for a model with sliding-window
+    layers and a state slot for a recurrent model), prefill each (whole,
+    bucketed, or in chunks of ``prefill_chunk`` rows, one chunk per engine
+    step), run one decode step over the decoding lanes (or, with
+    ``speculate``, one speculative round per lane), retire finished slots
+    and reclaim their blocks, rings and state slots.  The prefix cache
+    raises ``NotImplementedError``.
+
+    ``pricing="worst"`` (default) reserves each request's worst case at
+    admission, so decode never exhausts the pool; ``"lazy"`` reserves the
+    prefill only and, on a mid-decode ``CacheExhausted``, preempts the
+    youngest slot and requeues its request at the head of the queue (FCFS
+    and per-position keys keep every request's tokens those of an
+    uninterrupted run).  ``cache_blocks`` overrides the self-sized pool.
+    ``speculate=K`` (paged only) drafts up to K tokens per lane and step
+    with the first ``draft_layers`` layers (default half the stack,
+    rounded up to whole cycle repeats).
 
     ``plan=`` takes a compiled plan (``repro_torch.core.CompiledPlan``) for
     the served decode shape (``decode_shape_for(kv_len, n_slots)``): the
@@ -230,7 +336,10 @@ class ContinuousEngine:
     bucket_prompts: bool = False
     prefill_chunk: int = 0
     prefix_cache: bool = False
+    pricing: str = "worst"
+    cache_blocks: Optional[int] = None
     speculate: int = 0
+    draft_layers: Optional[int] = None
     device: Optional[object] = None
     telemetry: Optional[ServeTelemetry] = None
     # the compiled plan of the served decode shape; it sizes the cache
@@ -240,9 +349,8 @@ class ContinuousEngine:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        for name in ("prefix_cache", "speculate"):
-            if getattr(self, name):
-                raise NotImplementedError(f"{name} is not ported yet")
+        if self.prefix_cache:
+            raise NotImplementedError("prefix_cache is not ported yet")
         _check_servable(self.cfg)
         if self.plan is not None:
             # full-config equality, not name equality: cfg.reduced() keeps
@@ -277,6 +385,17 @@ class ContinuousEngine:
         if self.prefill_chunk and not self.paged:
             raise ValueError("prefill_chunk requires paged=True (chunks are "
                              "written straight into the page pools)")
+        if self.speculate < 0:
+            raise ValueError("speculate must be >= 0")
+        if self.speculate and not self.paged:
+            raise ValueError("speculate requires paged=True (the rewind "
+                             "path truncates block tables and window rings)")
+        if self.draft_layers is None:
+            self.draft_layers = max(1, self.cfg.n_layers // 2)
+        elif self.draft_layers < 1:
+            raise ValueError("draft_layers must be >= 1")
+        if self.cache_blocks is not None and self.cache_blocks < 1:
+            raise ValueError("cache_blocks must be >= 1")
         groups = lm.serve_groups(self.cfg)
         self._has_global = bool(groups["paged"])
         self._has_window = bool(groups["window"])
@@ -286,27 +405,38 @@ class ContinuousEngine:
         else:
             # dense lanes: the allocator only accounts, a block per
             # block_size rows of a lane
+            n_blocks = self.n_slots * -(-self.kv_len // self.block_size)
             self.allocator = BlockAllocator(CacheConfig(
                 block_size=self.block_size,
-                n_blocks=self.n_slots * -(-self.kv_len // self.block_size)))
+                n_blocks=self.cache_blocks or n_blocks))
             self._caches = lm.init_slot_caches(self.cfg, self.n_slots,
                                                self.kv_len, self.dtype,
                                                self.device)
             self._decode = make_serve_step(self.cfg, self.impl)
         self.scheduler = SlotScheduler(self.n_slots, self.allocator,
-                                       self.kv_len)
+                                       self.kv_len, pricing=self.pricing)
         if self.telemetry is None:
             self.telemetry = ServeTelemetry()
         self._prefill = make_prefill_step(self.cfg, self.impl)
         self._prefill_b = make_bucketed_prefill_step(self.cfg, self.impl)
-        self._toks = torch.zeros(self.n_slots, dtype=torch.int32,
-                                 device=self.device)
-        self._pos = torch.zeros(self.n_slots, dtype=torch.int32,
-                                device=self.device)
+        # per-lane state, written in place at admission and by each step
+        dev = self.device
+        self._toks = torch.zeros(self.n_slots, dtype=torch.int32, device=dev)
+        self._pos = torch.zeros(self.n_slots, dtype=torch.int32, device=dev)
+        # per-lane sampling state: base keys and the (temperature, top_k,
+        # top_p) lanes the batched steps sample with (greedy defaults)
+        self._skeys = torch.zeros((self.n_slots, 2), dtype=torch.int64,
+                                  device=dev)
+        self._temp = torch.zeros(self.n_slots, dtype=torch.float32,
+                                 device=dev)
+        self._topk = torch.zeros(self.n_slots, dtype=torch.int64, device=dev)
+        self._topp = torch.ones(self.n_slots, dtype=torch.float32, device=dev)
+        self._samp: dict[int, SamplingParams] = {}
         self._now = 0
         self._rids: set = set()
         # slot -> [prompt, chunks done] while chunk-prefilling
         self._prefilling: dict[int, list] = {}
+        self._preempted_last = 0       # scheduler.preemptions at last step
 
     @staticmethod
     def decode_shape_for(kv_len: int, n_slots: int) -> ShapeConfig:
@@ -338,8 +468,10 @@ class ContinuousEngine:
         # hold state slots, no blocks
         per_slot = (self._max_blocks if self._has_global else 0) + \
             self._window_cap_blocks()
-        cache_cfg = CacheConfig(block_size=self.block_size,
-                                n_blocks=self.n_slots * per_slot)
+        cache_cfg = CacheConfig(
+            block_size=self.block_size,
+            n_blocks=(self.cache_blocks if self.cache_blocks is not None
+                      else self.n_slots * per_slot))
         self.allocator = BlockAllocator(cache_cfg)
         self._caches = lm.init_paged_caches(
             self.cfg, self.n_slots, cache_cfg.n_blocks + 1, self.block_size,
@@ -375,17 +507,24 @@ class ContinuousEngine:
             self._chunk = make_chunk_prefill_step(self.cfg,
                                                   self.prefill_chunk,
                                                   self.impl)
+        if self.speculate:
+            self._draft_step = make_draft_decode_step(
+                self.cfg, self.draft_layers, self.impl)
+            self._verify_step = make_verify_step(
+                self.cfg, self.speculate + 1, self.impl)
         self._rows: dict[int, dict] = {}       # prefilling slot -> rows
         self._host_pos: dict[int, int] = {}
 
     def submit(self, prompt, max_new_tokens: int, *, rid=None,
                arrival: int = 0, eos_id: Optional[int] = None,
-               sampling=None) -> object:
+               sampling: Optional[SamplingParams] = None) -> object:
         """Queue a request; returns its id.  ``prompt`` is a 1-D sequence
         of token ids; ``arrival`` the engine step at which it becomes
-        admissible."""
-        if sampling is not None:
-            raise NotImplementedError("sampling is not ported yet")
+        admissible; ``sampling`` its ``SamplingParams`` (None is exact
+        greedy)."""
+        if sampling is not None and not isinstance(sampling, SamplingParams):
+            raise ValueError(
+                f"sampling must be a SamplingParams, got {type(sampling)}")
         prompt = [int(t) for t in prompt]
         if rid is None:
             while self._next_rid in self._rids:
@@ -396,23 +535,25 @@ class ContinuousEngine:
             raise ValueError(f"duplicate request id {rid!r}")
         self.scheduler.submit(Request(rid=rid, prompt=prompt,
                                       max_new_tokens=max_new_tokens,
-                                      arrival=arrival, eos_id=eos_id))
+                                      arrival=arrival, eos_id=eos_id,
+                                      sampling=sampling))
         self._rids.add(rid)
         return rid
 
-    def _full_prefill(self, prompt: torch.Tensor) -> tuple:
+    def _full_prefill(self, prompt: torch.Tensor, sample_args) -> tuple:
         """Whole-prompt prefill, right-padded to its bucket with
         ``bucket_prompts``, into a fresh dense single-request cache (a
         fresh one each time: the prefill writes it in place)."""
         cache = lm.init_cache(self.cfg, 1, self.kv_len, self.dtype,
                               self.device)
         if not self.bucket_prompts:
-            return self._prefill(self.params, cache, prompt[None])
+            return self._prefill(self.params, cache, prompt[None],
+                                 sample_args)
         n = prompt.shape[0]
         padded = torch.zeros((1, bucket_length(n, self.kv_len)),
                              dtype=torch.int32, device=self.device)
         padded[0, :n] = prompt
-        return self._prefill_b(self.params, cache, padded, n)
+        return self._prefill_b(self.params, cache, padded, n, sample_args)
 
     def _window_cap_blocks(self) -> int:
         """Most blocks one lane's window ring can pin at once: the blocks
@@ -435,15 +576,43 @@ class ContinuousEngine:
             row = self.allocator.padded_window_table(slot, self._max_blocks)
         return torch.tensor(row, dtype=torch.int32, device=self.device)
 
+    def _set_lane_sampling(self, slot: int, act: ActiveSlot) -> None:
+        """Publish the admitted request's sampling configuration to lane
+        ``slot``, in place: its base key and parameters on the device, and
+        its ``SamplingParams`` on the host."""
+        sp = act.request.sampling or GREEDY
+        self._samp[slot] = sp
+        self._skeys[slot] = sp.base_key(self.device)
+        self._temp[slot] = sp.temperature
+        self._topk[slot] = sp.top_k
+        self._topp[slot] = sp.top_p
+
+    def _first_token_args(self, slot: int, position: int):
+        """Sampling arguments of the token a prefill emits at cache
+        ``position`` (the key depends on seed and position only, so whole,
+        bucketed and chunked prefills of a request draw the same token);
+        None for a greedy lane, which keeps the fused argmax."""
+        sp = self._samp[slot]
+        if sp.is_greedy:
+            return None
+        return (sampling_mod.token_key(self._skeys[slot], position),
+                sp.temperature, sp.top_k, sp.top_p)
+
+    def _lanes_sample(self, lanes) -> bool:
+        return any(not self._samp[s].is_greedy for s in lanes)
+
     def _admit_one(self, act: ActiveSlot) -> None:
         slot = act.slot
         prompt = torch.tensor(act.request.prompt, dtype=torch.int32,
                               device=self.device)
+        start_pos = act.request.prompt_len
+        self._set_lane_sampling(slot, act)
         if not self.paged:
-            tok, cache = self._full_prefill(prompt)
+            tok, cache = self._full_prefill(
+                prompt, self._first_token_args(slot, start_pos))
             lm.write_slot_cache(self._caches, cache, slot)
             self._toks[slot] = tok[0]
-            self._pos[slot] = act.request.prompt_len
+            self._pos[slot] = start_pos
             act.first_token_step = self._now
             act.tokens.append(int(tok[0]))
             return
@@ -458,13 +627,14 @@ class ContinuousEngine:
             self._rows[slot] = rows
             self._prefilling[slot] = [prompt, 0]
             return
-        tok, cache = self._full_prefill(prompt)
+        tok, cache = self._full_prefill(
+            prompt, self._first_token_args(slot, start_pos))
         # whole-prompt admission overwrites the lane's state slabs, so a
         # reused lane needs no reset
         lm.insert_paged_prompt(self.cfg, self._caches, cache, rows, slot,
                                block_size=self.block_size,
                                null_block=self.allocator.config.null_block)
-        self._activate_lane(slot, tok[0], act.request.prompt_len, rows)
+        self._activate_lane(slot, tok[0], start_pos, rows)
         act.first_token_step = self._now
         act.tokens.append(int(tok[0]))
 
@@ -499,11 +669,13 @@ class ContinuousEngine:
                 self._rows[slot]["window"] = self._refresh_row(slot,
                                                                "window")
         last = total - 1 - start               # meaningful on the last one
+        final = start + C >= total
         tok, self._caches = self._chunk(
             self.params, self._caches, piece[None], start, self._rows[slot],
-            min(max(last, 0), C - 1), slot, valid)
+            min(max(last, 0), C - 1), slot, valid,
+            self._first_token_args(slot, total) if final else None)
         self._prefilling[slot][1] = done + 1
-        if start + C < total:
+        if not final:
             return False
         del self._prefilling[slot]
         self._activate_lane(slot, tok[0], total, self._rows.pop(slot))
@@ -512,44 +684,188 @@ class ContinuousEngine:
         act.tokens.append(int(tok[0]))
         return True
 
-    def _finish(self, slot: int) -> list:
-        """Retire ``slot``: reclaim its blocks and state slot and, paged,
-        unmap its table rows and freeze its state slabs."""
-        act = self.scheduler.finish(slot)
+    def _release_lane(self, slot: int) -> None:
+        """Forget a lane the scheduler has let go (finished or preempted):
+        its sampling state and, paged, its table rows (so no step touches
+        freed pages), its state slabs' updates and its prefill."""
+        self._samp.pop(slot, None)
+        self._prefilling.pop(slot, None)
         if self.paged:
             for table in self._tables.values():
                 table[slot] = self._null_row
             self._active[slot] = False
             self._host_pos.pop(slot, None)
+            self._rows.pop(slot, None)
+
+    def _finish(self, slot: int) -> list:
+        """Retire ``slot``: reclaim its blocks and state slot and release
+        its lane."""
+        act = self.scheduler.finish(slot)
+        self._release_lane(slot)
         return act.tokens
 
-    def _grow_tables(self, decoding: list) -> None:
+    def _pick_victim(self) -> Optional[int]:
+        """The youngest active slot (latest admission, slot id breaking
+        ties): preempting it drops the least work, and requeueing it at the
+        head of the queue keeps completion order and tokens those of an
+        uninterrupted run.  None when at most one slot is active: evicting
+        the only lane frees nothing its own re-admission could use, so the
+        caller lets ``CacheExhausted`` propagate."""
+        if len(self.scheduler.active) <= 1:
+            return None
+        return max(self.scheduler.active.values(),
+                   key=lambda a: (a.admitted_at, a.slot)).slot
+
+    def _preempt_for(self, exc: CacheExhausted) -> int:
+        """Preempt the youngest slot after ``exc`` (re-raised when there
+        is no victim); returns the victim's slot."""
+        victim = self._pick_victim()
+        if victim is None:
+            raise exc
+        self.scheduler.preempt(victim)
+        self._release_lane(victim)
+        return victim
+
+    def _grow_tables(self, decoding: list) -> list:
         """Claim the block backing each lane's next write before the
         decode step runs (the write needs a physical destination; a model
         without attention layers never claims one).  Window rings also
-        free every block that has fallen fully behind ``pos - window``."""
-        for slot in decoding:
-            n_res = self._host_pos[slot] + 1
-            if self._has_global and self.allocator.extend(slot, n_res):
-                self._tables["global"][slot] = self._refresh_row(slot,
-                                                                 "global")
-            if self._has_window:
-                fresh, freed = self.allocator.extend_window(slot, n_res)
-                if fresh or freed:
-                    self._tables["window"][slot] = self._refresh_row(
-                        slot, "window")
+        free every block that has fallen fully behind ``pos - window``.
+        Under lazy pricing a growth that finds the pool exhausted preempts
+        the youngest slot and retries (growth is idempotent for the lanes
+        already grown).  Returns the lanes still decoding."""
+        while True:
+            try:
+                for slot in decoding:
+                    self._grow(slot, self._host_pos[slot] + 1)
+                return decoding
+            except CacheExhausted as exc:
+                victim = self._preempt_for(exc)
+                decoding = [s for s in decoding if s != victim]
 
-    def _decode_lanes(self, decoding: list) -> torch.Tensor:
+    def _grow(self, slot: int, n_res: int, first_query_pos=None) -> None:
+        """Grow ``slot``'s table and slide its ring to cover ``n_res``
+        resident rows, republishing the rows that changed."""
+        if self._has_global and self.allocator.extend(slot, n_res):
+            self._tables["global"][slot] = self._refresh_row(slot, "global")
+        if self._has_window:
+            kw = ({} if first_query_pos is None
+                  else {"first_query_pos": first_query_pos})
+            fresh, freed = self.allocator.extend_window(slot, n_res, **kw)
+            if fresh or freed:
+                self._tables["window"][slot] = self._refresh_row(slot,
+                                                                 "window")
+
+    def _decode_lanes(self, decoding: list) -> None:
         """Dense lanes: one B=1 decode step per decoding lane on its own
-        cache (lanes that hold no decoding request are not run)."""
-        toks = self._toks.clone()
+        cache (lanes that hold no decoding request are not run); each new
+        token is written into ``_toks`` in place."""
         for slot in decoding:
+            sample_args = None
+            if not self._samp[slot].is_greedy:
+                # the token decided this step sits at pos + 1
+                sp = self._samp[slot]
+                sample_args = (
+                    sampling_mod.token_key(self._skeys[slot],
+                                           self._pos[slot].long() + 1),
+                    sp.temperature, sp.top_k, sp.top_p)
             tok, _ = self._decode(self.params,
                                   lm.slot_cache(self._caches, slot),
                                   self._toks[slot].reshape(1, 1),
-                                  self._pos[slot])
-            toks[slot] = tok[0]
-        return toks
+                                  self._pos[slot], sample_args)
+            self._toks[slot] = tok[0]
+
+    def _speculative_round(self, slot: int) -> Optional[tuple]:
+        """One self-speculative round of decode lane ``slot``.
+
+        Grow the lane's table and ring over the draft window; snapshot its
+        recurrent state; draft up to ``speculate`` tokens with the
+        truncated-layer step (each lands its K/V through the lane's
+        tables); restore the state and verify all drafts in one
+        chunk-shaped full-model pass; accept by rejection sampling (exact
+        argmax agreement under greedy); then rewind: truncate the table
+        tail and the ring past the accepted window and, on a partial
+        acceptance, restore the snapshot again and settle the state with
+        a ``valid = accepted + 1`` pass.
+
+        Returns ``(emitted tokens, n_drafted, n_accepted)``, or None when
+        the lane itself was preempted while growing (lazy pricing)."""
+        act = self.scheduler.active[slot]
+        sp = self._samp[slot]
+        pos = self._host_pos[slot]
+        budget = act.request.max_new_tokens - len(act.tokens)
+        k_r = max(0, min(self.speculate, budget - 1, self.kv_len - pos - 1))
+        while True:
+            try:
+                self._grow(slot, pos + k_r + 1, first_query_pos=pos)
+                break
+            except CacheExhausted as exc:
+                if self._preempt_for(exc) == slot:
+                    return None
+        rows = {g: t[slot] for g, t in self._tables.items()}
+        base = self._skeys[slot]
+        temp, topk, topp = sp.temperature, sp.top_k, sp.top_p
+        dev = self.device
+        snap = None
+        if self._has_state and k_r:
+            snap = lm.snapshot_state_lanes(self.cfg, self._caches, slot)
+        width = self.speculate + 1
+        toks = torch.zeros(width, dtype=torch.int32, device=dev)
+        toks[0] = act.tokens[-1]
+        probs = torch.zeros((self.speculate, self.cfg.vocab_size),
+                            dtype=torch.float32, device=dev)
+        if k_r and not sp.is_greedy:
+            # each draft's noise depends on its key only: draw all at once
+            noise = sampling_mod.gumbel(sampling_mod.token_key(
+                base, torch.arange(pos + 1, pos + k_r + 1, device=dev),
+                sampling_mod.STREAM_DRAFT), self.cfg.vocab_size)
+        tok = toks[:1]
+        for i in range(k_r):
+            row, self._caches = self._draft_step(
+                self.params, self._caches, tok,
+                torch.full((1,), pos + i, dtype=torch.int32, device=dev),
+                rows, slot)
+            if sp.is_greedy:           # the sampler's pick at temperature 0
+                toks[i + 1] = row.argmax()
+            else:
+                toks[i + 1], probs[i] = sampling_mod.sample_with_probs(
+                    row, noise[i], temp, topk, topp)
+            tok = toks[i + 1:i + 2]
+        if snap is not None:
+            # the draft advanced the lane's recurrent state k_r tokens;
+            # the verify pass starts from the pre-draft state
+            lm.restore_state_lanes(self.cfg, self._caches, snap, slot)
+        logits, self._caches = self._verify_step(
+            self.params, self._caches, toks, pos, rows, slot, k_r + 1)
+        if sp.is_greedy:
+            n_acc, nxt = sampling_mod.greedy_accept(logits, toks[1:], k_r)
+        else:
+            akey = sampling_mod.token_key(base, pos + 1,
+                                          sampling_mod.STREAM_ACCEPT)
+            n_acc, nxt = sampling_mod.speculative_accept(
+                logits, probs, toks[1:], k_r, akey, temp, topk, topp)
+        # one device->host transfer for the round
+        *drafted_host, a, e = torch.cat([
+            toks[1:1 + k_r], n_acc.to(torch.int32).reshape(1),
+            nxt.reshape(1)]).tolist()
+        if snap is not None and a < k_r:
+            # partial acceptance: the verify pass advanced the state over
+            # all k_r + 1 rows; rerun it from the snapshot with only the
+            # accepted rows valid to settle the post-accept state
+            lm.restore_state_lanes(self.cfg, self._caches, snap, slot)
+            _, self._caches = self._verify_step(
+                self.params, self._caches, toks, pos, rows, slot, a + 1)
+        final_res = pos + a + 1
+        if a < k_r:
+            if self._has_global and self.allocator.truncate(slot, final_res):
+                self._tables["global"][slot] = self._refresh_row(slot,
+                                                                 "global")
+            if self._has_window and self.allocator.truncate_window(
+                    slot, final_res):
+                self._tables["window"][slot] = self._refresh_row(slot,
+                                                                 "window")
+        self._host_pos[slot] = final_res
+        return drafted_host[:a] + [e], k_r, a
 
     @torch.no_grad()
     def run(self, max_steps: Optional[int] = None) -> dict:
@@ -609,28 +925,72 @@ class ContinuousEngine:
                 self._now = max(now + 1, nxt)  # idle: jump to next arrival
                 continue
 
+            if self.speculate:
+                # one speculative round per lane: draft, verify in one
+                # chunk-shaped pass, accept, rewind (each lane grows its
+                # own tables inside its round)
+                drafted = accepted = rewound = new_tokens = 0
+                ran = []
+                for slot in decoding:
+                    act = self.scheduler.active.get(slot)
+                    if act is None:
+                        continue       # preempted by an earlier round
+                    out = self._speculative_round(slot)
+                    if out is None:
+                        continue       # the lane itself was preempted
+                    ran.append(slot)
+                    emitted, k_r, a = out
+                    drafted += k_r
+                    accepted += a
+                    rewound += k_r - a
+                    for t in emitted:
+                        act.tokens.append(t)
+                        new_tokens += 1
+                        if act.is_finished():
+                            break      # EOS inside the accepted window
+                    if act.is_finished():
+                        results[act.request.rid] = self._finish(slot)
+                self._record_step(now, t0, ran, prefills, chunks,
+                                  new_tokens, t_prefill,
+                                  time.perf_counter() - t1, t_chunk,
+                                  drafted=drafted, accepted=accepted,
+                                  rewound=rewound)
+                self._now = now + 1
+                steps += 1
+                continue
+
             if self.paged:
-                self._grow_tables(decoding)
+                decoding = self._grow_tables(decoding)
+                if not decoding:           # every decoding lane was evicted
+                    self._record_step(now, t0, (), prefills, chunks, 0,
+                                      t_prefill, 0.0, t_chunk)
+                    self._now = now + 1
+                    steps += 1
+                    continue
+                sample_args = ((self._skeys, self._temp, self._topk,
+                                self._topp)
+                               if self._lanes_sample(decoding) else None)
                 toks, self._caches = self._decode_p(
                     self.params, self._caches, self._toks, self._pos,
-                    self._tables, self._active)
+                    self._tables, self._active, sample_args)
+                self._toks.copy_(toks)
             else:
-                toks = self._decode_lanes(decoding)
-            self._toks = toks
-            self._pos = self._pos + 1
-            toks_host = toks.tolist()          # one device->host transfer
+                self._decode_lanes(decoding)
+            self._pos += 1
+            toks_host = self._toks.tolist()    # one device->host transfer
             t_decode = time.perf_counter() - t1
             new_tokens = 0
             for slot in decoding:
-                act = self.scheduler.active[slot]
+                act = self.scheduler.active.get(slot)
+                if act is None:
+                    continue                   # preempted by a later lane
                 act.tokens.append(toks_host[slot])
                 new_tokens += 1
                 if self.paged:
                     self._host_pos[slot] += 1
-                else:
-                    # rows resident after this step: the prompt and every
-                    # decode write so far (the new token is not written)
-                    self.allocator.extend(slot, act.position - 1)
+                elif not self._extend_dense(slot, act):
+                    new_tokens -= 1            # its token was dropped
+                    continue
                 if act.is_finished():
                     results[act.request.rid] = self._finish(slot)
             self._record_step(now, t0, decoding, prefills, chunks,
@@ -639,9 +999,26 @@ class ContinuousEngine:
             steps += 1
         return results
 
+    def _extend_dense(self, slot: int, act: ActiveSlot) -> bool:
+        """Dense lanes: account the rows resident after this step (the
+        prompt and every decode write so far; the new token is not
+        written yet), preempting the youngest slot while the pool is
+        exhausted.  False when ``slot`` itself was preempted."""
+        while True:
+            try:
+                self.allocator.extend(slot, act.position - 1)
+                return True
+            except CacheExhausted as exc:
+                if self._preempt_for(exc) == slot:
+                    return False
+
     def _record_step(self, now: int, t0: float, active_slots, prefills: int,
                      chunks: int, new_tokens: int, prefill_seconds: float,
-                     decode_seconds: float, chunk_seconds: float) -> None:
+                     decode_seconds: float, chunk_seconds: float,
+                     drafted: int = 0, accepted: int = 0,
+                     rewound: int = 0) -> None:
+        preempted = self.scheduler.preemptions - self._preempted_last
+        self._preempted_last = self.scheduler.preemptions
         self.telemetry.record_step(
             step=now, seconds=time.perf_counter() - t0,
             active_slots=active_slots, n_slots=self.n_slots,
@@ -653,4 +1030,6 @@ class ContinuousEngine:
                                if self.paged else None),
             capacity_bytes=self.allocator.capacity_bytes(),
             prefill_seconds=prefill_seconds,
-            decode_seconds=decode_seconds, chunk_seconds=chunk_seconds)
+            decode_seconds=decode_seconds, chunk_seconds=chunk_seconds,
+            preemptions=preempted, drafted=drafted, accepted=accepted,
+            rewound_tokens=rewound)

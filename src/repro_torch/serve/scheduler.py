@@ -1,11 +1,19 @@
 """Request queue and slot scheduler for continuous batching.
 
-The port's copy of ``repro.serve.scheduler`` with worst-case pricing: the
-engine owns ``n_slots`` decode lanes, and queued requests are admitted into
-free lanes mid-stream, strictly first come first served, when the block
-allocator can reserve their worst case (``prompt_len + max_new_tokens``).
-A request admitted that way always decodes to its budget.  Arrivals are in
-engine steps (one step = one batched decode).
+The port's copy of ``repro.serve.scheduler``: the engine owns ``n_slots``
+decode lanes, and queued requests are admitted into free lanes mid-stream,
+strictly first come first served, when the block allocator can price them.
+Two pricing modes (``pricing=``):
+
+* ``"worst"`` (default) — admission reserves the worst case
+  (``prompt_len + max_new_tokens``) with the allocator, so an admitted
+  request always decodes to its budget.
+* ``"lazy"`` — admission prices the prefill only (``prompt_len + 1``);
+  decode growth claims blocks as it goes and can meet ``CacheExhausted``,
+  on which the engine preempts the youngest slot (``preempt``) and
+  requeues its request at the head of the queue.
+
+Arrivals are in engine steps (one step = one batched decode).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ class Request:
     max_new_tokens: int
     arrival: int = 0                 # engine step at which it exists
     eos_id: Optional[int] = None     # stop early when this token is emitted
+    sampling: Optional[object] = None  # SamplingParams; None is greedy
 
     @property
     def prompt_len(self) -> int:
@@ -61,12 +70,19 @@ class ActiveSlot:
 
 
 class SlotScheduler:
-    """FCFS admission of queued requests into free slots, each admission
-    reserving its worst case with the allocator.  Free slots form a
-    min-heap, so the lowest free slot is always reused first."""
+    """FCFS admission of queued requests into free slots, priced by
+    ``pricing`` ("worst" reserves each admission's worst case, "lazy" its
+    prefill only, with ``preempt`` as the safety net).  Free slots form a
+    min-heap, so the lowest free slot is always reused first, under
+    finish and preempt churn alike."""
 
-    def __init__(self, n_slots: int, allocator: BlockAllocator, kv_len: int):
+    def __init__(self, n_slots: int, allocator: BlockAllocator, kv_len: int,
+                 pricing: str = "worst"):
+        if pricing not in ("worst", "lazy"):
+            raise ValueError(f"pricing must be 'worst' or 'lazy', "
+                             f"got {pricing!r}")
         self.n_slots = n_slots
+        self.pricing = pricing
         self.allocator = allocator
         self.kv_len = kv_len
         self._free_slots: list[int] = list(range(n_slots))
@@ -74,6 +90,7 @@ class SlotScheduler:
         self.active: dict[int, ActiveSlot] = {}
         self.finished: list[ActiveSlot] = []
         self.slot_admissions: dict[int, int] = {s: 0 for s in range(n_slots)}
+        self.preemptions = 0
 
     def submit(self, request: Request) -> None:
         """Queue a request after checking it can ever be served."""
@@ -97,7 +114,8 @@ class SlotScheduler:
             req = self._pending[0]
             if req.arrival > now:
                 break
-            reserve = req.prompt_len + req.max_new_tokens
+            reserve = (req.prompt_len + req.max_new_tokens
+                       if self.pricing == "worst" else None)
             if not self.allocator.can_allocate(req.prompt_len + 1, reserve):
                 break
             self._pending.popleft()
@@ -118,8 +136,26 @@ class SlotScheduler:
         self.finished.append(act)
         return act
 
+    def preempt(self, slot: int) -> ActiveSlot:
+        """Evict the request in ``slot`` and requeue it at the head of the
+        queue (first in FCFS order, so its re-admission, and its tokens,
+        are those of an uninterrupted run).  Its generated tokens are
+        dropped: decoding restarts from the prompt.  The lazy pricing
+        mode's safety net against a mid-decode ``CacheExhausted``."""
+        act = self.active.pop(slot)
+        self.allocator.free_slot(slot)
+        heapq.heappush(self._free_slots, slot)
+        act.tokens.clear()
+        act.first_token_step = None
+        self._pending.appendleft(act.request)
+        self.preemptions += 1
+        return act
+
     def has_work(self) -> bool:
         return bool(self._pending or self.active)
+
+    def n_pending(self) -> int:
+        return len(self._pending)
 
     def next_arrival(self) -> Optional[int]:
         """Arrival step of the queue head (None when empty)."""

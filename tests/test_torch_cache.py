@@ -7,7 +7,11 @@ and beside a global table), typed failures, state-slot accounting
 (admission gated by free slots, release on finish, ``check()`` catching a
 leaked slot, recurrent residency), ``check()`` catching a leaked window
 ring, the torch ``PagedKVStore``, and FCFS admission with worst-case
-reservations."""
+reservations.  Also the speculative rewind (``truncate``,
+``truncate_window``, a rewind churn against the reference),
+``check_no_leaks``, lazy pricing and ``preempt``, the speculation and
+preemption telemetry, and F5 (a window ring's reservation over-counted
+beside a global table) pinned in both packages."""
 
 import numpy as np
 import pytest
@@ -376,3 +380,247 @@ def test_check_catches_a_leaked_window_ring():
     alloc.free_slot(0)
     alloc.check()
     assert alloc.n_free == 8
+
+
+# =============================================================================
+# speculative rewind, lazy pricing and preemption
+# (tests/test_serve_paged.py:387-470, tests/test_serve_prefix_cache.py:395-410)
+# =============================================================================
+
+def _window_pair(n_blocks, bs, window, cap, has_global=True):
+    """(port, reference) allocators with the same window layout."""
+    spec = {"has_global": has_global, "window": window,
+            "window_cap_blocks": cap}
+    port = BlockAllocator(CacheConfig(block_size=bs, n_blocks=n_blocks))
+    ref = jcache.BlockAllocator(jcache.CacheConfig(block_size=bs,
+                                                   n_blocks=n_blocks))
+    port.set_layout(CacheLayout(**spec))
+    ref.set_layout(jcache.CacheLayout(**spec))
+    return port, ref
+
+
+def test_truncate_frees_whole_tail_blocks_only():
+    """A rewind frees only the blocks wholly past the kept length (a partly
+    vacated tail block stays), in the reference's order: the freed tail
+    block is the next one handed out."""
+    for alloc in (BlockAllocator(CacheConfig(block_size=4, n_blocks=8)),
+                  jcache.BlockAllocator(jcache.CacheConfig(block_size=4,
+                                                           n_blocks=8))):
+        alloc.allocate(0, 3)
+        alloc.extend(0, 11)                    # 3 blocks
+        freed = alloc.truncate(0, 6)           # keep blocks_for(6) == 2
+        assert len(freed) == 1 and len(alloc.tables[0]) == 2
+        alloc.check()
+        assert alloc.truncate(0, 5) == []      # the same covering blocks
+        alloc.check()
+        assert alloc.extend(0, 11) == freed    # LIFO reuse
+        alloc.free_slot(0)
+        alloc.check_no_leaks()
+
+
+def test_truncate_guards():
+    for mod in (None, jcache):
+        alloc = BlockAllocator(CacheConfig(4, 8)) if mod is None else \
+            mod.BlockAllocator(mod.CacheConfig(4, 8))
+        err = AllocatorInvariantError if mod is None else \
+            mod.AllocatorInvariantError
+        with pytest.raises(err):
+            alloc.truncate(0, 2)               # no allocation
+        alloc.allocate(0, 5)
+        with pytest.raises(err):
+            alloc.truncate(0, 9)               # cannot grow
+        alloc.free_slot(0)
+        alloc.check_no_leaks()
+    alloc = BlockAllocator(CacheConfig(4, 8))
+    alloc.set_layout(CacheLayout(has_global=False, window=8,
+                                 window_cap_blocks=3))
+    with pytest.raises(AllocatorInvariantError, match="window ring"):
+        alloc.truncate_window(0, 4)            # no ring
+
+
+def test_truncate_window_rolls_the_ring_back():
+    """The rewind pops exactly the ring entries past the kept position and
+    leaves the low edge (slid with the query pinned at the pre-draft
+    position) alone, with the reference's block ids."""
+    port, ref = _window_pair(16, 4, 8, 5, has_global=False)
+    for alloc in (port, ref):
+        alloc.allocate(0, 6)                   # logical blocks 0..1
+        alloc.extend_window(0, 12, first_query_pos=5)
+        assert max(alloc.window_tables[0]) == 2
+    assert port.window_tables == ref.window_tables
+    freed = port.truncate_window(0, 7)
+    assert freed == ref.truncate_window(0, 7) and len(freed) == 1
+    assert sorted(port.window_tables[0]) == [0, 1]
+    assert port.window_tables == ref.window_tables
+    port.check()
+    assert port.extend_window(0, 10, first_query_pos=6) == \
+        ref.extend_window(0, 10, first_query_pos=6)
+    port.free_slot(0)
+    port.check_no_leaks()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_rewind_churn_matches_reference(seed):
+    """Speculative churn as the engine drives it (grow k + 1 rows with the
+    ring's query pinned at the pre-draft position, rewind to a random
+    acceptance point, retire) on a global table beside a window ring: the
+    reference's block ids and rings, ``check()`` after every rewind, and
+    nothing leaked at the end."""
+    rng = np.random.default_rng(seed)
+    port, ref = _window_pair(24, 4, 8, 4)
+    live: dict[int, int] = {}                 # slot -> resident tokens
+    next_slot = 0
+    for _ in range(200):
+        op = rng.random()
+        if op < 0.3 and len(live) < 4:
+            n = int(rng.integers(1, 10))
+            ok = port.can_allocate(n)
+            assert ok == ref.can_allocate(n)
+            if ok:
+                assert port.allocate(next_slot, n) == \
+                    ref.allocate(next_slot, n)
+                live[next_slot] = n
+                next_slot += 1
+        elif op < 0.85 and live:
+            slot = sorted(live)[int(rng.integers(len(live)))]
+            pos = live[slot]
+            k = int(rng.integers(1, 5))
+            grown = pos + k + 1
+            if not port.can_allocate(grown - pos):
+                continue
+            for alloc in (port, ref):
+                alloc.extend(slot, grown)
+                alloc.extend_window(slot, grown, first_query_pos=pos - 1)
+            keep = pos + int(rng.integers(0, k + 1)) + 1
+            assert port.truncate(slot, keep) == ref.truncate(slot, keep)
+            assert port.truncate_window(slot, keep) == \
+                ref.truncate_window(slot, keep)
+            port.check()
+            live[slot] = keep
+        elif live:
+            slot = sorted(live)[int(rng.integers(len(live)))]
+            assert port.free_slot(slot) == ref.free_slot(slot)
+            del live[slot]
+        assert port.tables == ref.tables
+        assert port.window_tables == ref.window_tables
+        assert port.n_free == ref.n_free
+    for slot in sorted(live):
+        port.free_slot(slot)
+    port.check_no_leaks()
+
+
+def test_check_no_leaks_catches_live_state():
+    alloc = BlockAllocator(CacheConfig(4, 8))
+    alloc.set_layout(CacheLayout(state_slots=2, state_bytes_per_slot=8))
+    alloc.allocate(0, 5)
+    with pytest.raises(AllocatorInvariantError, match="live tables"):
+        alloc.check_no_leaks()
+    alloc.free_slot(0)
+    alloc.check_no_leaks()
+    alloc._free.pop()                          # a block lost
+    with pytest.raises(AllocatorInvariantError, match="leaked"):
+        alloc.check_no_leaks()
+
+
+def test_preempt_resets_slot_state_and_requeues_at_the_head():
+    """``SlotScheduler.preempt`` clears the generated tokens, returns the
+    slot to the free heap, requeues at the head of the queue and counts
+    the eviction, as the reference's does."""
+    for mod, alloc in ((psched, BlockAllocator(CacheConfig(4, 16))),
+                       (jsched, jcache.BlockAllocator(
+                           jcache.CacheConfig(4, 16)))):
+        s = mod.SlotScheduler(2, alloc, kv_len=32, pricing="lazy")
+        for rid in (0, 1, 2):
+            s.submit(mod.Request(rid=rid, prompt=[1, 2, 3],
+                                 max_new_tokens=4))
+        s.admit(0)
+        victim = s.active[1]
+        victim.tokens.extend([7, 8])
+        victim.first_token_step = 0
+        s.preempt(1)
+        assert s.preemptions == 1 and 1 not in s.active
+        assert victim.tokens == [] and victim.first_token_step is None
+        assert s.n_pending() == 2
+        readmitted = s.admit(1)                # the head of the queue again
+        assert [(a.request.rid, a.slot) for a in readmitted] == [(1, 1)]
+        assert alloc.n_in_use == 2
+
+
+def test_lazy_pricing_admits_like_the_reference():
+    """Lazy pricing prices the prefill only: more admissions fit than under
+    worst-case pricing, in the same order as the reference's scheduler."""
+    def run(mod_sched, alloc, pricing):
+        sched = mod_sched.SlotScheduler(4, alloc, kv_len=32,
+                                        pricing=pricing)
+        for i, (n, new) in enumerate([(5, 20), (9, 20), (3, 25), (12, 14)]):
+            sched.submit(mod_sched.Request(rid=i, prompt=list(range(n)),
+                                           max_new_tokens=new))
+        return [(a.request.rid, a.slot) for a in sched.admit(0)]
+
+    for pricing in ("worst", "lazy"):
+        assert run(psched, BlockAllocator(CacheConfig(4, 16)), pricing) == \
+            run(jsched, jcache.BlockAllocator(jcache.CacheConfig(4, 16)),
+                pricing)
+    assert len(run(psched, BlockAllocator(CacheConfig(4, 16)), "lazy")) > \
+        len(run(psched, BlockAllocator(CacheConfig(4, 16)), "worst"))
+    with pytest.raises(ValueError, match="pricing"):
+        SlotScheduler(2, BlockAllocator(CacheConfig(4, 8)), 16,
+                      pricing="eager")
+
+
+def test_speculation_and_preemption_telemetry_match_the_reference():
+    from repro.runtime.telemetry import ServeTelemetry as JServeTelemetry
+    steps = [dict(preemptions=1), dict(drafted=8, accepted=3,
+                                       rewound_tokens=5),
+             dict(drafted=4, accepted=4), dict(preemptions=2)]
+    tel, jtel = ServeTelemetry(), JServeTelemetry()
+    for i, kw in enumerate(steps):
+        for t in (tel, jtel):
+            t.record_step(i, 0.1, (0,), 4, 2, 8, new_tokens=1, **kw)
+    for name in ("total_preemptions", "accept_rate", "total_drafted",
+                 "total_rewound_tokens", "total_tokens"):
+        assert getattr(tel, name)() == getattr(jtel, name)(), name
+    assert tel.accept_rate() == 7 / 12 and tel.total_preemptions() == 3
+    assert tel.steps[1].rewound_tokens == 5
+
+
+def test_f5_ring_reservation_overcounts_beside_a_global_table():
+    """F5 settled: ``outstanding_blocks`` is the wrong side.  A request
+    whose worst case is shorter than the window ring's cap can only ever
+    pin ``blocks_for(worst)`` ring blocks, which ``blocks_needed`` prices;
+    ``outstanding_blocks`` charges its ring up to the whole cap.  With a
+    global table beside the ring and a pool below ``n_slots * (max_blocks
+    + cap)``, two such admissions leave "reservations outstanding" above
+    the free blocks: ``check()`` fails on a sound pool, an admission that
+    fits is refused, and ``n_available()`` turns negative, so growth
+    *inside* a reservation raises ``CacheExhausted`` (0 blocks beyond the
+    reservation > -1 available) with 5 blocks free and 4 truly promised.
+    Under worst-case pricing that growth is promised never to fail.  Both
+    packages give the same numbers and the same failure (the port keeps
+    the reference's arithmetic, so that block ids match)."""
+    # block 4, window 8 (cap 3 blocks), pool 9 < 2 slots * (4 + 3)
+    port, ref = _window_pair(9, 4, 8, 3)
+    for alloc in (port, ref):
+        assert alloc.blocks_needed(3, 6) == 4          # 2 global + 2 ring
+        alloc.allocate(0, 3, reserve_tokens=6)
+        # the ring holds 1 block and can reach 2; it is charged up to 3
+        assert alloc.outstanding_blocks() == 3
+        assert alloc.n_free == 7 and alloc.n_available() == 4
+        assert alloc.can_allocate(3, 6)
+        alloc.allocate(1, 3, reserve_tokens=6)
+        assert alloc.outstanding_blocks() == 6 and alloc.n_free == 5
+        assert alloc.n_available() == -1
+        assert _check_message(alloc).startswith(
+            "reservations outstanding (6) exceed")
+        assert not alloc.can_allocate(1, 1)            # 1 block would fit
+        # slot 0 grows to 6 tokens, inside its reservation of 2 blocks:
+        # what each slot may still claim is 1 global + 1 ring block, 4 in
+        # all, and 5 are free
+        with pytest.raises(MemoryError, match="0 beyond"):
+            alloc.extend(0, 6)
+        assert alloc.n_free == 5
+    assert port.tables == ref.tables
+    assert port.window_tables == ref.window_tables
+    for slot in (0, 1):
+        port.free_slot(slot)
+    port.check_no_leaks()

@@ -227,15 +227,21 @@ def test_continuous_engine_plain_equals_kernel_path_on_cpu(models):
 def test_engines_refuse_what_is_not_ported(models):
     _, cfg, _, tp = models
     kw = dict(kv_len=KV_LEN, device="cpu")
-    for flag in ({"prefix_cache": True}, {"speculate": 2}):
-        for paged in (True, False):
-            with pytest.raises(NotImplementedError):
-                ContinuousEngine(cfg, tp, paged=paged, **flag, **kw)
-    # the reference's check: chunks are written into the page pools
+    for paged in (True, False):
+        with pytest.raises(NotImplementedError, match="prefix_cache"):
+            ContinuousEngine(cfg, tp, paged=paged, prefix_cache=True, **kw)
+    # the reference's checks: chunks are written into the page pools, and
+    # the speculative rewind truncates block tables
     with pytest.raises(ValueError, match="prefill_chunk requires paged"):
         ContinuousEngine(cfg, tp, paged=False, prefill_chunk=16, **kw)
+    with pytest.raises(ValueError, match="speculate requires paged"):
+        ContinuousEngine(cfg, tp, paged=False, speculate=2, **kw)
+    for bad in ({"speculate": -1}, {"draft_layers": 0},
+                {"pricing": "eager"}, {"cache_blocks": 0}):
+        with pytest.raises(ValueError):
+            ContinuousEngine(cfg, tp, paged=True, **bad, **kw)
     eng = ContinuousEngine(cfg, tp, paged=True, **kw)
-    with pytest.raises(NotImplementedError, match="sampling"):
+    with pytest.raises(ValueError, match="SamplingParams"):
         eng.submit([1, 2], 3, sampling=object())
     with pytest.raises(ValueError, match="divisible"):
         ContinuousEngine(cfg, tp, paged=True, kv_len=40, block_size=16,
