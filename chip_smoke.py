@@ -129,10 +129,38 @@ exit code:
    ring or state slot leaked (``check_no_leaks``).  Mamba-2 holds no
    blocks, so (d) is skipped for it with that reason.  The phase prints
    its wall time.
+   prefix_router — after each path's ``sample_spec``, at full width in
+   f32 with phase ``serve``'s weights, each run with the launch counters
+   zeroed just before it and read just after, the counts held to formulas
+   summed over the replicas' telemetry (paged: attention layers x batched
+   decode steps; flash: attention layers x whole prefills; scans:
+   recurrent layers x whole prefills or chunks), each request against the
+   plain B=1 engine under the margin rule, and after each run every
+   allocator audited (``check``) and, after ``drop_cached``, leak-free
+   with no resident byte; every replica serves the one weight dict (peak
+   memory under 1.5 x the weights).  TinyLlama serves 18 requests 2 steps
+   apart, 32 new tokens each: phase ``serve``'s 8 prompts, the same 8
+   again, and the first 128 tokens of the 131-token prompt twice (a
+   block-aligned whole hit; the second copy arrives at step 125, after
+   the first's admission), (a) through ``ContinuousEngine(paged=True,
+   prefix_cache=True)`` (prefix hits, at least one copy-on-write fork),
+   (b) the same with bucketed 16-row chunks (fewer chunks than the
+   prompts' blocks), (c) through ``Router.build(n_replicas=2,
+   disaggregate=True, prefill_chunk=16)`` (roles prefill/decode, at least
+   one handoff moving a block) and (d) through two co-located replicas
+   with the prefix cache (a placement with a hit); the lines give hit
+   rate, forks, peak shared bytes, placement and decode starvation.
+   Mamba-2 and RecurrentGemma refuse ``prefix_cache=True`` with the
+   reference's reason, and ``Router.build(disaggregate=True)`` degrades
+   to two co-located replicas that serve phase ``serve``'s 8 prompts.
 7. timing  — each trace in bf16: tokens/s, mean decode step and prefill,
    peak memory, the trace once more untraced in the chunked mode (tokens/s,
    mean decode and chunk step), (c) of phase ``sample_spec`` in bf16,
-   untraced (tokens/s, acceptance rate, ms per speculative round),
+   untraced (tokens/s, acceptance rate, ms per speculative round), for
+   TinyLlama runs (b) and (c) of phase ``prefix_router`` in bf16,
+   untraced, each beside the same trace without the prefix cache
+   (tokens/s, mean prefill and chunk step, hit rate, decode starvation,
+   peak memory, the card's name and power limit),
    and a repeat under ``torch.profiler``
    (device time by kernel name, the device's busy share, and each port
    kernel's device time per launch on the path, with the kernel functions
@@ -163,7 +191,8 @@ exit code:
 Then the ``{"kernels": [...]}`` summary line (paged and flash attention at
 TinyLlama's hd 64, with recurrentgemma's hd 256 beside them; every kernel
 with its long shape; launches summed over every full-width run of phases
-``serve``, ``serve_modes``, ``sample_spec`` and ``adapt``, and by run),
+``serve``, ``serve_modes``, ``sample_spec``, ``prefix_router`` and
+``adapt``, and by run),
 the wall time of each phase, the card's ``name, power.limit`` line, and
 last ``{"ok": true, "device": ...}``.  The build phase also counts each kernel
 function's tensor-core instructions (``cuobjdump -sass``).  Bounds use the
@@ -212,6 +241,16 @@ LAZY_BLOCKS = 32
 # trace would take the script past its time limit
 SPEC_PROMPTS = 4
 SPEC_NEW = 16
+# phase prefix_router: phase serve's prompts, the same again, and the first
+# PREFIX_ALIGNED tokens of the 131-token prompt twice (block-aligned: a
+# whole hit recomputes its last position inside a shared block, which
+# forks copy-on-write), STAGGER steps apart, but the last copy arrives at
+# ALIGNED_LATE, one step after run (a) admits the first copy (step 124 in a
+# CPU rehearsal of the phase: with no eos_id the schedule depends on the
+# trace alone), so that the first has committed when the second matches
+PREFIX_ALIGNED = 128
+ALIGNED_LATE = 125
+PREFIX_CHUNK = 16
 # the engine's other modes, run in phase serve_modes: the README's serving
 # example (bucketed paged lanes, 16-row chunks) and bucketed dense lanes
 SERVE_MODES = {
@@ -1179,6 +1218,275 @@ def phase_sample_spec(dev, served: dict) -> dict:
     return out
 
 
+def prefix_trace(prompts) -> tuple:
+    """Phase prefix_router's trace: (prompts, arrivals)."""
+    aligned = next(p for p in prompts if len(p) == 131)[:PREFIX_ALIGNED]
+    trace = list(prompts) * 2 + [aligned, aligned]
+    arrivals = [i * STAGGER for i in range(len(trace) - 1)] + [ALIGNED_LATE]
+    return trace, arrivals
+
+
+def serve_requests(target, prompts, arrivals, max_new=MAX_NEW) -> dict:
+    """Submit request i (``prompts[i]`` at ``arrivals[i]``) to an engine or
+    a router and serve them all."""
+    for i, (p, t) in enumerate(zip(prompts, arrivals)):
+        target.submit(p, max_new, rid=i, arrival=t)
+    return target.run()
+
+
+def replica_engines(target) -> list:
+    """The engines of a router's replicas, or the one engine."""
+    return ([r.engine for r in target.replicas]
+            if hasattr(target, "replicas") else [target])
+
+
+def fleet_counts(engines) -> dict:
+    """Prefills, chunks and batched decode steps summed over the engines'
+    telemetry (the launch counters are module globals, so a fleet's
+    formulas sum the replicas' steps)."""
+    steps = [s for e in engines for s in e.telemetry.steps]
+    return {"prefills": sum(s.prefills for s in steps),
+            "chunks": sum(s.prefill_chunks for s in steps),
+            "decode_steps": sum(1 for s in steps if s.active_slots)}
+
+
+def expected_fleet_launches(cfg, counts: dict, chunked: bool) -> dict:
+    """Each kernel's launches over a run of one or more paged engines:
+    paged attention per attention layer and batched decode step; whole
+    prefill: flash per attention layer and prefill, each scan per
+    recurrent layer and prefill; chunked prefill: no flash (a chunk's
+    attention is the plain gather), each scan per recurrent layer and
+    chunk."""
+    mixers = [s.mixer for s in cfg.layers()]
+    n_attn = sum(1 for m in mixers if m in ("global", "local"))
+    units = counts["chunks"] if chunked else counts["prefills"]
+    return {"paged_attention": n_attn * counts["decode_steps"],
+            "flash_attention": 0 if chunked else n_attn * counts["prefills"],
+            "ssd_scan": mixers.count("ssd") * units,
+            "rglru_scan": mixers.count("rglru") * units}
+
+
+def check_drained(engines) -> None:
+    """After a run: every allocator passes ``check()``, and after
+    ``drop_cached()`` ``check_no_leaks()`` with no resident byte."""
+    for eng in engines:
+        eng.allocator.check()
+        eng.allocator.drop_cached()
+        eng.allocator.check_no_leaks()
+        check(eng.allocator.resident_bytes() == 0,
+              "resident bytes left after drop_cached")
+
+
+def fleet_row(target, engines) -> dict:
+    """The prefix-cache and fleet figures of one run."""
+    stats = [e.allocator.prefix_stats() for e in engines]
+    tels = [e.telemetry for e in engines]
+    hit = sum(st["hit_tokens"] for st in stats)
+    looked = sum(st["lookup_tokens"] for st in stats)
+    row = {"hit_tokens": hit, "lookup_tokens": looked,
+           "hit_rate": hit / looked if looked else 0.0,
+           "cow_forks": sum(st["cow_forks"] for st in stats),
+           "commits": sum(st["commits"] for st in stats),
+           "evictions": sum(st["evictions"] for st in stats),
+           "peak_shared_saved_bytes": max(t.peak_shared_saved_bytes()
+                                          for t in tels),
+           "decode_starvation": sum(t.decode_starvation() for t in tels)}
+    if hasattr(target, "replicas"):
+        row.update(roles=[r.role for r in target.replicas],
+                   placement=target.routed_per_replica,
+                   router_stats=dict(target.stats),
+                   transfer=dict(target.transfer.stats),
+                   decisions_with_hits=sum(1 for d in target.decisions
+                                           if d.hit_tokens > 0))
+    return row
+
+
+def phase_prefix_router(dev, served: dict) -> dict:
+    """The prefix cache and the multi-replica router at full width in f32,
+    every run with the launch counters zeroed just before it and read just
+    after, each request against the plain B=1 engine's tokens under the
+    margin rule, the launch counts against ``expected_fleet_launches``,
+    and every allocator audited and leak-free after ``drop_cached``.
+
+    An arch whose blocks can be shared (TinyLlama) serves ``prefix_trace``
+    (a) through ``ContinuousEngine(prefix_cache=True)`` with whole prefill
+    (hits, at least one copy-on-write fork, the two aligned copies
+    admitted at different steps), (b) the same with bucketed 16-row
+    chunks (fewer chunks than the prompts' blocks), (c) through
+    ``Router.build(n_replicas=2, disaggregate=True)`` (a prefill and a
+    decode replica, at least one handoff moving at least one block) and
+    (d) through two co-located replicas with the prefix cache (at least
+    one placement with a hit).  Any other arch must refuse the prefix
+    cache with the reference's reason, and a disaggregated router must
+    degrade to two co-located replicas that serve phase serve's prompts.
+    Every replica serves the one weight dict (peak memory under 1.5 x the
+    weights).  Returns {run: launches}."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serve import ContinuousEngine, Router
+    cfg, params = served["cfg"], served["params"]
+    counters = launch_counters()
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in _leaves(params))
+    kw = {"kv_len": KV_LEN, "n_slots": N_SLOTS, "block_size": BLOCK,
+          "dtype": torch.float32, "device": dev}
+    t_phase = time.perf_counter()
+    reason = lm.prefix_sharable_reason(cfg)
+    if reason is None:
+        trace, arrivals = prefix_trace(served["prompts"])
+        refs = served["refs"] * 2 + plain_tokens(
+            cfg, params, trace[-1:], dev, torch.float32) * 2
+        chunked = {"bucket_prompts": True, "prefill_chunk": PREFIX_CHUNK}
+        runs = {
+            "whole": lambda: ContinuousEngine(
+                cfg, params, paged=True, prefix_cache=True, **kw),
+            "bucket_chunk": lambda: ContinuousEngine(
+                cfg, params, paged=True, prefix_cache=True, **chunked,
+                **kw),
+            "disaggregated": lambda: Router.build(
+                cfg, params, n_replicas=2, disaggregate=True,
+                prefill_chunk=PREFIX_CHUNK, **kw),
+            "colocated": lambda: Router.build(
+                cfg, params, n_replicas=2, paged=True, prefix_cache=True,
+                **kw)}
+    else:
+        try:
+            ContinuousEngine(cfg, params, paged=True, prefix_cache=True,
+                             **kw)
+            refused = None
+        except ValueError as exc:
+            refused = str(exc)
+        check(refused == f"{cfg.name}: prefix cache unavailable — {reason}",
+              f"prefix_cache was not refused with the reason: {refused}")
+        emit("prefix_router", arch=cfg.name, run="prefix_cache",
+             refused=refused)
+        trace, refs = served["prompts"], served["refs"]
+        arrivals = [i * STAGGER for i in range(len(trace))]
+        runs = {"degraded": lambda: Router.build(
+            cfg, params, n_replicas=2, disaggregate=True, paged=True, **kw)}
+    out = {}
+    for name, build in runs.items():
+        target = build()
+        engines = replica_engines(target)
+        check(all(e.params is params for e in engines),
+              f"{name}: a replica holds its own weights")
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        results = serve_requests(target, trace, arrivals)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        counts = fleet_counts(engines)
+        is_chunked = bool(engines[0].prefill_chunk)
+        expect = expected_fleet_launches(cfg, counts, is_chunked)
+        rows = hold_against_plain(cfg, params, trace, results, refs, dev)
+        row = fleet_row(target, engines)
+        emit("prefix_router", arch=cfg.name, run=name, dtype="float32",
+             seconds=seconds, requests=rows,
+             **counts, launches=launches, expected_launches=expect, **row,
+             disagg_unsupported_reason=getattr(
+                 target, "disagg_unsupported_reason", None),
+             peak_memory_bytes=peak, weight_bytes=weight_bytes)
+        check(launches == expect,
+              f"{name}: launches {launches} != expected {expect}")
+        check(all(r["ok"] for r in rows), f"{name}: tokens diverged: {rows}")
+        check(peak < 1.5 * weight_bytes,
+              f"{name}: peak memory {peak} B for {weight_bytes} B of weights")
+        if name == "whole":
+            check(row["hit_tokens"] > 0 and row["cow_forks"] >= 1,
+                  f"whole: {row['hit_tokens']} hit tokens, "
+                  f"{row['cow_forks']} forks")
+            admitted = {a.request.rid: a.admitted_at
+                        for a in target.scheduler.finished}
+            n = len(trace)
+            check(admitted[n - 2] != admitted[n - 1],
+                  "the two aligned copies were admitted in one step")
+            check(counts["prefills"] == n, f"{counts['prefills']} prefills")
+        elif name == "bucket_chunk":
+            blocks = sum(-(-len(p) // PREFIX_CHUNK) for p in trace)
+            check(counts["chunks"] < blocks,
+                  f"{counts['chunks']} chunks, not fewer than {blocks}")
+        elif name == "disaggregated":
+            check(row["roles"] == ["prefill", "decode"],
+                  f"roles {row['roles']}")
+            check(target.stats["handoffs"] >= 1 and
+                  target.stats["transferred_blocks"] >= 1,
+                  f"handoffs: {target.stats}")
+        elif name == "colocated":
+            check(row["decisions_with_hits"] >= 1,
+                  "no placement found a prefix hit")
+        else:
+            check(row["roles"] == ["mixed", "mixed"] and
+                  target.disagg_unsupported_reason == reason,
+                  f"not degraded: {row['roles']}, "
+                  f"{target.disagg_unsupported_reason}")
+            check(counts["prefills"] == len(trace),
+                  f"{counts['prefills']} prefills")
+        check_drained(engines)
+        out[name] = launches
+        del target, engines
+    emit("prefix_router", arch=cfg.name,
+         seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def time_prefix_router(cfg, params, prompts, dev) -> dict:
+    """Runs (b) and (c) of phase ``prefix_router`` in bf16, untraced, each
+    beside the same trace without the prefix cache (bucketed chunks on one
+    engine; two co-located replicas with 16-row chunks), after a short
+    warm-up: tokens/s, mean prefill (all its chunks) and chunk step, hit
+    rate, decode starvation and peak memory.  Report only."""
+    import torch
+    from repro_torch.serve import ContinuousEngine, Router
+    kw = {"kv_len": KV_LEN, "n_slots": N_SLOTS, "block_size": BLOCK,
+          "dtype": torch.bfloat16, "device": dev}
+    chunked = {"paged": True, "bucket_prompts": True,
+               "prefill_chunk": PREFIX_CHUNK}
+    runs = {
+        "bucket_chunk": lambda: ContinuousEngine(
+            cfg, params, prefix_cache=True, **chunked, **kw),
+        "bucket_chunk_no_prefix_cache": lambda: ContinuousEngine(
+            cfg, params, **chunked, **kw),
+        "disaggregated": lambda: Router.build(
+            cfg, params, n_replicas=2, disaggregate=True,
+            prefill_chunk=PREFIX_CHUNK, **kw),
+        "colocated_no_prefix_cache": lambda: Router.build(
+            cfg, params, n_replicas=2, paged=True, prefix_cache=False,
+            prefill_chunk=PREFIX_CHUNK, **kw)}
+    trace, arrivals = prefix_trace(prompts)
+    out = {"card": nvidia_smi()}
+    for name, build in runs.items():
+        serve_requests(build(), prompts[:2], [0, 0], 4)       # warm-up
+        target = build()
+        engines = replica_engines(target)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        results = serve_requests(target, trace, arrivals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = [s for e in engines for s in e.telemetry.steps]
+        prefills = sum(s.prefills for s in steps)
+        chunks = sum(s.prefill_chunks for s in steps)
+        n_tokens = sum(len(v) for v in results.values())
+        row = fleet_row(target, engines)
+        out[name] = {
+            "tokens": n_tokens, "wall_seconds": wall,
+            "tokens_per_s": n_tokens / wall,
+            "mean_prefill_ms": sum(s.prefill_seconds for s in steps)
+            / prefills * 1e3,
+            "mean_chunk_ms": sum(s.chunk_seconds for s in steps)
+            / chunks * 1e3 if chunks else 0.0,
+            "chunks": chunks, "hit_rate": row["hit_rate"],
+            "decode_starvation": row["decode_starvation"],
+            "max_memory_allocated_bytes":
+                torch.cuda.max_memory_allocated(dev)}
+    return out
+
+
 def time_sample_spec(cfg, params, prompts, dev) -> dict:
     """Run (c) of phase ``sample_spec`` once more in bf16, untraced, after
     a short warm-up: tokens/s, the acceptance rate and the mean ms per
@@ -1611,12 +1919,14 @@ def phase_kernel_timing(dev) -> dict:
 
 
 def phase_timing(dev, served: dict) -> None:
-    """TinyLlama's path: the bf16 trace."""
+    """TinyLlama's path: the bf16 trace, and phase prefix_router's runs (b)
+    and (c) beside the same trace without the prefix cache."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
 
-    cfg = served["cfg"]
+    cfg, prompts = served["cfg"], served["prompts"]
     serve, params = time_serve(dev, served)
+    serve["prefix_router"] = time_prefix_router(cfg, params, prompts, dev)
     del params
     emit("timing", arch=cfg.name, dtype="bfloat16", serve=serve,
          launches_bf16={"paged_attention": pa_ops.paged_attention.launches,
@@ -1950,6 +2260,10 @@ def main() -> int:
                 for run, counts in phase_sample_spec(dev, served).items():
                     by_path[f"{arch}/{run}"] = counts
                 t = done("sample_spec", t)
+                phase = "prefix_router"
+                for run, counts in phase_prefix_router(dev, served).items():
+                    by_path[f"{arch}/prefix_router/{run}"] = counts
+                t = done("prefix_router", t)
                 phase = "timing"
                 timing_phase(dev, served)
                 t = done("timing", t)

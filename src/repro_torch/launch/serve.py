@@ -5,8 +5,13 @@ recurrentgemma's recurrent layers), with whole, bucketed (``--bucket``) or
 chunked (``--chunk-prefill C``, paged only) prefill, per-request sampling
 (``--temperature``, ``--top-k``, ``--top-p``; request i samples with seed
 ``--sample-seed + i``), self-speculative decoding (``--speculate K``,
-``--draft-layers L``, paged only) and worst-case or lazy admission pricing
-(``--pricing``, ``--cache-blocks`` to undersize the pool).
+``--draft-layers L``, paged only), worst-case or lazy admission pricing
+(``--pricing``, ``--cache-blocks`` to undersize the pool), the
+content-addressed prefix cache (``--prefix-cache``, paged only, with
+``--shared-prefix P`` opening every prompt with the same P tokens), and a
+cache-aware router over ``--replicas N`` engine replicas (``--disaggregate``
+splits prefill from decode replicas with a block handoff; archs whose
+blocks cannot be handed over run co-located replicas and say why).
 
 Usage (on the CUDA card; ``--device cpu`` runs the plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
@@ -27,6 +32,11 @@ Usage (on the CUDA card; ``--device cpu`` runs the plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --continuous --paged --pricing lazy --cache-blocks 40
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        --continuous --paged --prefix-cache --shared-prefix 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        --continuous --paged --replicas 2 --disaggregate --chunk-prefill 16 \
+        --shared-prefix 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --reduced --batch 4 --prompt-len 16 --max-new 32 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --reduced --continuous --paged --device cpu
@@ -45,7 +55,8 @@ serving interference.  The plan's step times are modelled from datasheet
 figures, not measured.
 
 Weights are random, drawn from ``--seed`` with a ``torch.Generator`` on
-the serving device; prompts come from the same generator.
+the serving device; prompts (the shared prefix first) come from the same
+generator.
 """
 
 from __future__ import annotations
@@ -59,7 +70,7 @@ from repro_torch import configs
 from repro_torch.core import H100_SXM, Topology, adapt_plan, compile_plan
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
-from repro_torch.serve import ContinuousEngine, Engine, SamplingParams
+from repro_torch.serve import ContinuousEngine, Engine, Router, SamplingParams
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -84,33 +95,107 @@ def _static(args, cfg, params, gen, device, dtype):
     print("first sequence:", out[0].tolist())
 
 
-def _continuous(args, cfg, params, gen, device, dtype):
-    plan = None
+def _trace(args, cfg, gen, device) -> list:
+    """The arrival trace, ``(prompt, sampling)`` per request, shared by the
+    single-engine and routed paths (``--replicas`` changes placement, never
+    the workload).  With ``--shared-prefix P`` every prompt opens with the
+    same P tokens, the workload the prefix cache deduplicates."""
+    shared = (torch.randint(0, cfg.vocab_size, (args.shared_prefix,),
+                            generator=gen, device=device).tolist()
+              if args.shared_prefix > 0 else [])
+    out = []
+    for i in range(args.requests):
+        prompt = torch.randint(0, cfg.vocab_size, (args.prompt_len,),
+                               generator=gen, device=device).tolist()
+        # per-request sampling (temperature 0 stays bitwise greedy)
+        sp = (SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                             top_p=args.top_p, seed=args.sample_seed + i)
+              if args.temperature > 0 else None)
+        out.append((shared + prompt, sp))
+    return out
+
+
+def _plan(args, cfg):
+    """With ``--adapt``: the plan (compiled, or fetched from the plan
+    cache) of the decode traffic this launch serves, the engine's cache
+    length x lane count, on the modelled cards of --devices."""
+    if not args.adapt:
+        return None
+    serve_shape = ContinuousEngine.decode_shape_for(args.kv_len, args.batch)
+    return compile_plan(cfg, serve_shape,
+                        Topology.homogeneous(args.devices, H100_SXM))
+
+
+def _router(args, cfg, params, gen, device, dtype):
+    """``--replicas N``: the trace routed over an N-engine fleet, with
+    ``--disaggregate`` splitting prefill from decode replicas."""
+    router = Router.build(cfg, params, n_replicas=args.replicas,
+                          disaggregate=args.disaggregate,
+                          kv_len=args.kv_len, n_slots=args.batch,
+                          paged=args.paged,
+                          prefill_chunk=args.chunk_prefill,
+                          prefix_cache=args.prefix_cache or None,
+                          plans=_plan(args, cfg), dtype=dtype,
+                          device=device, bucket_prompts=args.bucket,
+                          pricing=args.pricing,
+                          cache_blocks=args.cache_blocks)
+    if router.disagg_unsupported_reason:
+        print(f"[router] {args.arch}: disaggregation unavailable "
+              f"({router.disagg_unsupported_reason}) — running "
+              f"{args.replicas} co-located replicas")
+    for i, (prompt, sp) in enumerate(_trace(args, cfg, gen, device)):
+        router.submit(prompt, max_new_tokens=args.max_new, rid=i,
+                      arrival=i * args.stagger, sampling=sp)
+    t0 = time.perf_counter()
+    results = router.run()
+    _sync(device)
+    dt = time.perf_counter() - t0
+    fs = router.fleet_stats()
+    total = fs["total_tokens"]
+    roles = "/".join(r.role for r in router.replicas)
+    print(f"[router] {args.arch}: {len(results)} requests over "
+          f"{args.replicas} replicas ({roles}), {total} tokens in "
+          f"{dt:.2f}s ({total / dt:.1f} tok/s) on {device}")
+    print(f"[router] placement={fs['routed_per_replica']} "
+          f"handoffs={fs['handoffs']} "
+          f"transferred_blocks={fs['transferred_blocks']} "
+          f"decode_starvation={fs['decode_starvation']} "
+          f"occupancy={fs['occupancy']:.2f} "
+          f"cache_pressure={fs['cache_pressure']:.2f}"
+          + (f" prefix_hit_rate={fs['prefix_hit_rate']:.2f}"
+             if args.prefix_cache or args.disaggregate else ""))
+    for name, row in router.telemetry.summary().items():
+        print(f"[router]   {name}: tokens={row['tokens']} "
+              f"steps={row['steps']} "
+              f"starved={row['decode_starvation']} "
+              f"occupancy={row['occupancy']:.2f}")
+    if results:
+        print("first request:", results[0])
     if args.adapt:
-        # compile (or fetch from the plan cache) the placement for the
-        # decode traffic this launch serves: the engine's cache length x
-        # lane count, on the modelled cards of --devices
-        serve_shape = ContinuousEngine.decode_shape_for(args.kv_len,
-                                                        args.batch)
-        plan = compile_plan(cfg, serve_shape,
-                            Topology.homogeneous(args.devices, H100_SXM))
+        out = router.adapt()
+        print(f"[adapt] fleet: {len(out.migrations)} queued-request "
+              f"migrations, plan deltas="
+              f"{len(out.trace.deltas) if out.trace else 0}")
+        if out.trace and out.trace.deltas:
+            print(f"[adapt] step time {out.trace.step_times[0]*1e3:.2f}ms "
+                  f"-> {out.trace.step_times[-1]*1e3:.2f}ms "
+                  f"({out.trace.improvement:.1%} under fleet load)")
+
+
+def _continuous(args, cfg, params, gen, device, dtype):
+    plan = _plan(args, cfg)
     eng = ContinuousEngine(cfg, params, kv_len=args.kv_len,
                            n_slots=args.batch, paged=args.paged,
                            bucket_prompts=args.bucket,
                            prefill_chunk=args.chunk_prefill,
+                           prefix_cache=args.prefix_cache,
                            pricing=args.pricing,
                            cache_blocks=args.cache_blocks,
                            speculate=args.speculate,
                            draft_layers=args.draft_layers,
                            dtype=dtype, device=device, plan=plan)
-    for i in range(args.requests):
-        prompt = torch.randint(0, cfg.vocab_size, (args.prompt_len,),
-                               generator=gen, device=device)
-        # per-request sampling (temperature 0 stays bitwise greedy)
-        sp = (SamplingParams(temperature=args.temperature, top_k=args.top_k,
-                             top_p=args.top_p, seed=args.sample_seed + i)
-              if args.temperature > 0 else None)
-        eng.submit(prompt.tolist(), max_new_tokens=args.max_new, rid=i,
+    for i, (prompt, sp) in enumerate(_trace(args, cfg, gen, device)):
+        eng.submit(prompt, max_new_tokens=args.max_new, rid=i,
                    arrival=i * args.stagger, sampling=sp)
     t0 = time.perf_counter()
     results = eng.run()
@@ -140,6 +225,15 @@ def _continuous(args, cfg, params, gen, device, dtype):
               f"block_size={eng.block_size}, "
               f"{eng.allocator.layout.state_slots} state slots) "
               f"peak by group: {by_group}")
+    if args.prefix_cache:
+        st = eng.allocator.prefix_stats()
+        print(f"[serve-cb] prefix-cache: hit_rate="
+              f"{tel.prefix_hit_rate():.2f} "
+              f"({st['hit_tokens']}/{st['lookup_tokens']} tokens, "
+              f"{st['hit_admissions']}/{st['admissions']} admissions) "
+              f"commits={st['commits']} evictions={st['evictions']} "
+              f"cow_forks={st['cow_forks']} "
+              f"peak_shared={tel.peak_shared_saved_bytes() / 1024:.0f}KiB")
     if args.speculate:
         print(f"[serve-cb] speculative: k={args.speculate} "
               f"draft_layers={eng.draft_layers} "
@@ -202,6 +296,14 @@ def main(argv=None):
     ap.add_argument("--chunk-prefill", type=int, default=0, metavar="C",
                     help="continuous+paged: prefill prompts in C-token "
                          "chunks interleaved with decode")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="continuous+paged: content-addressed prefix-block "
+                         "reuse with copy-on-write (all-global-attention "
+                         "archs)")
+    ap.add_argument("--shared-prefix", type=int, default=0, metavar="P",
+                    help="continuous: open every prompt with the same P "
+                         "random tokens (the workload --prefix-cache "
+                         "deduplicates)")
     ap.add_argument("--pricing", choices=("worst", "lazy"), default="worst",
                     help="continuous admission pricing: reserve the full "
                          "worst case (default) or oversubscribe and "
@@ -232,6 +334,14 @@ def main(argv=None):
                     help="continuous: number of requests in the trace")
     ap.add_argument("--stagger", type=int, default=2,
                     help="continuous: arrival gap between requests, in steps")
+    ap.add_argument("--replicas", type=int, default=1, metavar="N",
+                    help="continuous: serve through a cache-aware router "
+                         "over N engine replicas (N > 1)")
+    ap.add_argument("--disaggregate", action="store_true",
+                    help="--replicas: replica 0 runs chunked prefill only "
+                         "and hands finished KV blocks to decode replicas "
+                         "(co-located replicas on archs whose blocks "
+                         "cannot be handed over)")
     ap.add_argument("--adapt", action="store_true",
                     help="continuous: size the engine from a compiled plan "
                          "and feed the serve telemetry to the §3 "
@@ -255,7 +365,12 @@ def main(argv=None):
     dtype = DTYPES[args.dtype or ("float32" if args.reduced else "bfloat16")]
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = lm.init_params(cfg, gen, device, dtype)
-    if args.continuous:
+    if args.replicas > 1:
+        if not args.continuous:
+            raise SystemExit("--replicas requires --continuous (the router "
+                             "fans a request trace over engine replicas)")
+        _router(args, cfg, params, gen, device, dtype)
+    elif args.continuous:
         _continuous(args, cfg, params, gen, device, dtype)
     else:
         _static(args, cfg, params, gen, device, dtype)

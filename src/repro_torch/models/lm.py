@@ -22,6 +22,7 @@ a view of it.
 
 from __future__ import annotations
 
+import hashlib
 import math
 from typing import Callable, Optional
 
@@ -178,6 +179,50 @@ def serve_groups(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     for li, spec in enumerate(cfg.layers()):
         out[_MIXER_GROUP[spec.mixer]].append(li)
     return {k: tuple(v) for k, v in out.items()}
+
+
+def prefix_sharable_reason(cfg: ModelConfig) -> Optional[str]:
+    """Why prefix-cache block sharing across requests is unavailable for
+    ``cfg``, or None when it is sound (the reference's reasons, word for
+    word).  A block's content must be a function of the token prefix it
+    covers alone: causal global attention's K/V rows are, but any
+    per-request state (encoder frames, frontend rows, window rings,
+    recurrent slabs) disqualifies the whole arch."""
+    if cfg.n_enc_layers:
+        return ("enc-dec cross-attention mixes per-request encoder frames "
+                "into every decoder layer, so block content is not a "
+                "function of the token prefix")
+    if cfg.frontend:
+        return ("modality-frontend rows prepend per-request embeddings, so "
+                "every self-attention block depends on the request's "
+                "frontend content, not just its tokens")
+    groups = serve_groups(cfg)
+    if groups["window"]:
+        return ("sliding-window layers keep per-request block rings whose "
+                "entries are freed and recycled in place, never "
+                "content-stable")
+    if groups["recurrent"]:
+        return ("recurrent-state layers carry per-request scan state "
+                "slabs, not content-addressable blocks")
+    return None
+
+
+def prompt_block_hashes(prompt, block_size: int) -> tuple[str, ...]:
+    """Content-addressed hash chain over a prompt's full cache blocks:
+    ``h_i = blake2b(h_{i-1} | tokens_i)``, so equal hashes mean equal
+    prefixes and a chain lookup stops at the first miss.  The partial tail
+    block is never hashed (it stays private to its request).  The
+    reference's chain, string for string."""
+    toks = [int(t) for t in prompt]
+    chain: list[str] = []
+    parent = b""
+    for i in range(len(toks) // block_size):
+        block = toks[i * block_size:(i + 1) * block_size]
+        payload = parent + b"|" + b",".join(b"%d" % t for t in block)
+        h = hashlib.blake2b(payload, digest_size=16).hexdigest()
+        chain.append(h)
+        parent = h.encode()
+    return tuple(chain)
 
 
 def init_paged_caches(cfg: ModelConfig, n_slots: int, n_pages: int,
@@ -354,7 +399,7 @@ def _scatter_rows(pages, row_tbl, cpos, rows, *, block_size: int,
 
 def insert_paged_prompt(cfg: ModelConfig, caches: dict, single: dict,
                         tables: dict, slot: int, *, block_size: int,
-                        null_block: int) -> dict:
+                        null_block: int, skip_below: int = 0) -> dict:
     """Scatter a dense single-request prefill cache (``init_cache(cfg, 1,
     kv_len)`` after a prefill) into the paged tree, in place: attention
     rows go to the physical blocks the lane's table row names
@@ -362,7 +407,13 @@ def insert_paged_prompt(cfg: ModelConfig, caches: dict, single: dict,
     layer, [W] each), at their absolute positions (rows whose position is
     -1, or whose block the table does not cover, as behind a window ring,
     go to the null page); SSD and RG-LRU conv tail and state go into lane
-    ``slot``.  Other lanes are untouched.  Returns ``caches``."""
+    ``slot``.  Other lanes are untouched.
+
+    ``skip_below`` masks the attention writes below that position (their
+    position becomes -1, so they land on the null page): on a prefix-cache
+    hit those rows are already resident in shared blocks, which other
+    slots read, and must not be written again.  The prefill still computed
+    them.  Returns ``caches``."""
     for (spec, entry), (_, one) in zip(_cache_entries(cfg, caches),
                                        _cache_entries(cfg, single)):
         if spec.mixer in _STATE_MIXERS:
@@ -370,10 +421,25 @@ def insert_paged_prompt(cfg: ModelConfig, caches: dict, single: dict,
             continue
         leaf, sl = entry["attn"], one["attn"]
         cpos = sl["pos"][0]                 # identical across repeats
+        if skip_below:
+            cpos = cpos.masked_fill(cpos < skip_below, -1)
         row = tables["window" if spec.mixer == "local" else "global"]
         for pool, rows in (("k_pages", sl["k"]), ("v_pages", sl["v"])):
             _scatter_rows(leaf[pool], row, cpos, rows[:, 0],
                           block_size=block_size, null_block=null_block)
+    return caches
+
+
+def copy_paged_block(cfg: ModelConfig, caches: dict, src: int,
+                     dst: int) -> dict:
+    """Copy physical page ``src`` onto ``dst`` in every global-attention
+    pool leaf, in place: the physical half of a prefix-cache copy-on-write
+    fork.  Window pools and recurrent state are never shared, so they are
+    untouched.  Returns ``caches``."""
+    for spec, entry in _cache_entries(cfg, caches):
+        if spec.mixer == "global":
+            for pool in entry["attn"].values():
+                pool[:, dst].copy_(pool[:, src])
     return caches
 
 

@@ -1,2 +1,2 @@
-from .telemetry import ServeStep, ServeTelemetry, Telemetry
+from .telemetry import FleetTelemetry, ServeStep, ServeTelemetry, Telemetry
 from .elastic import ElasticController

@@ -8,11 +8,13 @@ Serving telemetry: the part of ``repro.runtime.telemetry.ServeTelemetry``
 that the continuous-batching engine records each step (slot occupancy,
 block-pool pressure, residency overall and by cache group, emitted
 tokens, step time, lazy-pricing preemptions, speculative drafts, accepts
-and rewound rows), plus the split of each step's host-clock time into
-its prefill and decode parts, and the chunk steps' share of the prefill
-part; and its bridge to the paper's §3 scheduling assistants
-(``device_interference``, ``assistant_callback``), copied from the
-reference.
+and rewound rows, prefix-cache lookups, hits and sharing, decode lanes
+that shared a step with prefill work), plus the split of each step's
+host-clock time into its prefill and decode parts, and the chunk steps'
+share of the prefill part; and its bridge to the paper's §3 scheduling
+assistants (``device_interference``, ``assistant_callback``), copied from
+the reference.  ``FleetTelemetry`` reduces the per-replica feeds of a
+multi-replica router and carries the same bridge for the fleet.
 
 The engine reads a token back to the host at the end of every prefill and
 every decode step, which waits for the device, so these host-clock times
@@ -76,6 +78,12 @@ class ServeStep:
     chunk_seconds: float = 0.0    # the chunk steps alone
     # lazy pricing's safety net: slots evicted and requeued this step
     preemptions: int = 0
+    # prefix cache: prompt tokens looked up and served from the cache at
+    # this step's admissions, and the pool's sharing state after it
+    prefix_hit_tokens: int = 0
+    prefix_lookup_tokens: int = 0
+    shared_saved_bytes: int = 0       # bytes deduplicated right now
+    cached_blocks: int = 0            # refcount-0 committed blocks resident
     # self-speculative decoding: draft tokens proposed and accepted this
     # step, and cache rows written then rewound after a rejection
     drafted: int = 0
@@ -103,6 +111,14 @@ class ServeTelemetry:
 
     def __post_init__(self):
         self.steps = deque(self.steps, maxlen=self.history)
+        self._zero()
+
+    def reset(self) -> None:
+        """Drop every recorded step and whole-run aggregate."""
+        self.steps.clear()
+        self._zero()
+
+    def _zero(self) -> None:
         self._total_tokens = 0
         self._busy_seconds = 0.0
         self._peak_pressure = 0.0
@@ -119,6 +135,10 @@ class ServeTelemetry:
         self._total_drafted = 0
         self._total_accepted = 0
         self._total_rewound = 0
+        self._prefix_hit_tokens = 0
+        self._prefix_lookup_tokens = 0
+        self._peak_shared_saved_bytes = 0
+        self._starved_decode_steps = 0
 
     def record_step(self, step: int, seconds: float, active_slots,
                     n_slots: int, blocks_in_use: int, n_blocks: int,
@@ -129,6 +149,9 @@ class ServeTelemetry:
                     prefill_seconds: float = 0.0,
                     decode_seconds: float = 0.0,
                     chunk_seconds: float = 0.0, preemptions: int = 0,
+                    prefix_hit_tokens: int = 0,
+                    prefix_lookup_tokens: int = 0,
+                    shared_saved_bytes: int = 0, cached_blocks: int = 0,
                     drafted: int = 0, accepted: int = 0,
                     rewound_tokens: int = 0) -> None:
         self.steps.append(ServeStep(
@@ -140,8 +163,11 @@ class ServeTelemetry:
             resident_by_group=dict(resident_by_group or {}),
             prefill_seconds=prefill_seconds, decode_seconds=decode_seconds,
             chunk_seconds=chunk_seconds, preemptions=preemptions,
-            drafted=drafted, accepted=accepted,
-            rewound_tokens=rewound_tokens))
+            prefix_hit_tokens=prefix_hit_tokens,
+            prefix_lookup_tokens=prefix_lookup_tokens,
+            shared_saved_bytes=shared_saved_bytes,
+            cached_blocks=cached_blocks, drafted=drafted,
+            accepted=accepted, rewound_tokens=rewound_tokens))
         # chunk work units are not emitted tokens: only completed prefills
         # (one token each) and decode tokens count
         self._total_tokens += new_tokens + prefills
@@ -166,6 +192,15 @@ class ServeTelemetry:
         self._total_drafted += drafted
         self._total_accepted += accepted
         self._total_rewound += rewound_tokens
+        self._prefix_hit_tokens += prefix_hit_tokens
+        self._prefix_lookup_tokens += prefix_lookup_tokens
+        self._peak_shared_saved_bytes = max(self._peak_shared_saved_bytes,
+                                            shared_saved_bytes)
+        # every decode lane that shared this step with prefill work had its
+        # token delayed by that prefill: the displacement disaggregated
+        # prefill and decode removes
+        if (prefills or prefill_chunks) and active_slots:
+            self._starved_decode_steps += len(tuple(active_slots))
 
     def _recent(self) -> list:
         return list(self.steps)[-self.window:]
@@ -242,6 +277,23 @@ class ServeTelemetry:
         rejection rewound (table tail, window ring, recurrent state)."""
         return self._total_rewound
 
+    def prefix_hit_rate(self) -> float:
+        """Fraction of looked-up prompt tokens served from the prefix cache
+        over the whole run (0 when no admission carried a hash chain)."""
+        if not self._prefix_lookup_tokens:
+            return 0.0
+        return self._prefix_hit_tokens / self._prefix_lookup_tokens
+
+    def peak_shared_saved_bytes(self) -> int:
+        """Peak device bytes deduplicated by prefix-block sharing."""
+        return self._peak_shared_saved_bytes
+
+    def decode_starvation(self) -> int:
+        """Whole-run count of decode-lane steps displaced by prefill work:
+        each decoding lane of a step that also ran a whole prefill or a
+        chunk counts one."""
+        return self._starved_decode_steps
+
     def tokens_per_sec(self) -> float:
         if self._busy_seconds <= 0:
             return 0.0
@@ -275,6 +327,88 @@ class ServeTelemetry:
         """A ``telemetry=`` callback for ``core.assistants.run_adaptation``:
         utilization under the measured serving interference, re-evaluated
         against each candidate assignment as the assistants migrate nodes."""
+        from repro_torch.core.assistants import simulate_utilization
+
+        interference = self.device_interference(cost_model.k)
+
+        def callback(assignment):
+            return simulate_utilization(graph, assignment, cost_model,
+                                        interference=interference)
+        return callback
+
+
+class FleetTelemetry:
+    """The per-replica ``ServeTelemetry`` feeds of a multi-replica
+    ``serve.Router``, reduced on demand (the replicas' records are held by
+    reference, never copied).  Counters (tokens, starvation, preemptions)
+    sum over the replicas; ratios (occupancy, cache pressure) average over
+    the replicas that have recorded a step, so that an idle prefill
+    replica does not dilute them; the prefix hit rate pools the lookups.
+    ``device_interference`` is the element-wise mean of the replicas'
+    per-device multipliers, which ``Router.adapt`` feeds into one §3
+    adaptation for the whole fleet."""
+
+    def __init__(self):
+        self.replicas: list[tuple[str, ServeTelemetry]] = []
+
+    def attach(self, name: str, telemetry: ServeTelemetry) -> None:
+        self.replicas.append((name, telemetry))
+
+    def _live(self) -> list:
+        return [t for _, t in self.replicas if t.steps]
+
+    def total_tokens(self) -> int:
+        return sum(t.total_tokens() for _, t in self.replicas)
+
+    def total_preemptions(self) -> int:
+        return sum(t.total_preemptions() for _, t in self.replicas)
+
+    def decode_starvation(self) -> int:
+        """Fleet-wide decode-lane steps displaced by prefill work (a
+        prefill-only replica's steps carry no decode lane)."""
+        return sum(t.decode_starvation() for _, t in self.replicas)
+
+    def occupancy(self) -> float:
+        live = self._live()
+        return statistics.mean(t.occupancy() for t in live) if live else 0.0
+
+    def cache_pressure(self) -> float:
+        live = self._live()
+        return statistics.mean(t.cache_pressure() for t in live) \
+            if live else 0.0
+
+    def prefix_hit_rate(self) -> float:
+        looked = sum(t._prefix_lookup_tokens for _, t in self.replicas)
+        hit = sum(t._prefix_hit_tokens for _, t in self.replicas)
+        return hit / looked if looked else 0.0
+
+    def max_concurrency(self) -> int:
+        return sum(t.max_concurrency() for _, t in self.replicas)
+
+    def summary(self) -> dict:
+        """Per-replica snapshot keyed by replica name."""
+        return {name: {"tokens": t.total_tokens(),
+                       "occupancy": t.occupancy(),
+                       "cache_pressure": t.cache_pressure(),
+                       "decode_starvation": t.decode_starvation(),
+                       "steps": len(t.steps)}
+                for name, t in self.replicas}
+
+    # -- assistant bridge (paper §3, fleet level) ------------------------------
+    def device_interference(self, k: int) -> list:
+        """Element-wise mean of the replicas' per-device interference: the
+        fleet's measured serving load on one k-device mesh."""
+        live = self._live()
+        if not live:
+            return [{"compute": 1.0, "memory": 1.0, "network": 1.0}
+                    for _ in range(k)]
+        per = [t.device_interference(k) for t in live]
+        return [{res: statistics.mean(p[d][res] for p in per)
+                 for res in ("compute", "memory", "network")}
+                for d in range(k)]
+
+    def assistant_callback(self, graph, cost_model) -> Callable:
+        """The ``telemetry=`` feed of one fleet-level ``run_adaptation``."""
         from repro_torch.core.assistants import simulate_utilization
 
         interference = self.device_interference(cost_model.k)

@@ -20,6 +20,19 @@ recurrent (SSD, RG-LRU) layers also holds one state slot per live request
 (its lane's O(1) state slabs), accounted apart from the blocks; a model
 with no attention layer holds no blocks at all (``CacheLayout``).
 
+Prefix cache (``CacheLayout.sharable``): global-group blocks are
+content-addressed.  Each full prompt block is named by a hash chain
+(``models.lm.prompt_block_hashes``) and refcounted; an admission maps the
+longest indexed prefix of its chain read-only into the head of its table,
+and ``commit_slot`` publishes a slot's full prompt blocks into the index
+once its prefill is resident.  ``free_slot`` releases instead of freeing:
+a committed block whose refcount falls to 0 parks in an LRU *cached* pool,
+which still counts as allocatable, and ``_claim`` evicts the least
+recently used cached block only when the free list is empty, never a
+block with a live reference.  A write into a shared or indexed block forks
+it first (``ensure_private``, copy-on-write).  ``BlockTransferBuffer``
+stages committed blocks between replicas (the prefill -> decode handoff).
+
 Failures are typed as in the reference: ``CacheExhausted`` (a
 ``MemoryError``) is expected backpressure, ``AllocatorInvariantError`` (an
 ``AssertionError``) is a bug.
@@ -32,6 +45,7 @@ the pools in place, so a store bound to them never needs rebinding.
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Optional
 
@@ -83,7 +97,9 @@ class CacheLayout:
     describe the recurrent lanes (0 slots = no recurrent group).
     ``prefill_chunk`` (chunked prefill): window rings start at block 0 and
     slide forward with the chunks, and the cap counts the in-flight
-    chunk's blocks."""
+    chunk's blocks.  ``sharable`` turns on the content-addressed prefix
+    cache over the global group (the engine sets it only when
+    ``models.lm.prefix_sharable_reason`` is None)."""
 
     has_global: bool = True
     window: int = 0
@@ -91,6 +107,7 @@ class CacheLayout:
     state_slots: int = 0
     state_bytes_per_slot: int = 0
     prefill_chunk: int = 0
+    sharable: bool = False
 
 
 class PagedKVStore:
@@ -165,14 +182,20 @@ class BlockAllocator:
     window group (``window_tables``: logical block -> physical block), and
     a state slot per live request when it has a recurrent group.
 
+    Every global-table entry is refcounted: with a sharable layout one
+    physical block may back several slots' tables and outlive them all in
+    the LRU cached pool (module docstring).  A block is free (on the free
+    list), cached (committed content, refcount 0, evictable, still
+    allocatable) or live (refcount >= 1).
+
     Admissions may carry a worst-case reservation (``reserve_tokens``):
     the reserved but not yet claimed blocks of every live slot are
     subtracted from what ``can_allocate`` promises the next admission, and
     a slot's own ``extend``s (and ring slides) draw on its reservation, so
     a reserving scheduler never sees ``CacheExhausted`` mid-decode.  The
-    free list is LIFO, with blocks claimed and returned in the reference's
-    order, so both allocators hand out the same block ids for the same
-    operations.
+    free list is LIFO, the cached pool in LRU order, and blocks are
+    claimed, released, committed and evicted in the reference's order, so
+    both allocators hand out the same block ids for the same operations.
     """
 
     def __init__(self, config: CacheConfig,
@@ -184,6 +207,19 @@ class BlockAllocator:
         self.window_tables: dict[int, dict[int, int]] = {}
         self._tokens: dict[int, int] = {}          # slot -> resident tokens
         self._reserve: dict[int, int] = {}         # slot -> reserved blocks
+        # prefix cache and refcounts (global group only)
+        self._ref: dict[int, int] = {}             # live block -> refcount
+        self._hash_of: dict[int, str] = {}         # committed block -> hash
+        self._index: dict[str, int] = {}           # content hash -> block
+        self._cached: OrderedDict[int, int] = OrderedDict()  # LRU, ref 0
+        self._tick = 0                             # LRU recency counter
+        self._slot_hashes: dict[int, tuple] = {}   # slot -> prompt chain
+        # slot -> prompt tokens served from the index at admission (the
+        # engine starts prefill at the first uncached position)
+        self.matched_tokens: dict[int, int] = {}
+        self.stats: dict[str, int] = {
+            "admissions": 0, "hit_admissions": 0, "lookup_tokens": 0,
+            "hit_tokens": 0, "commits": 0, "evictions": 0, "cow_forks": 0}
         self.stores: list[PagedKVStore] = []
         self.store_groups: list[str] = []
         self.layout = CacheLayout()
@@ -193,8 +229,10 @@ class BlockAllocator:
 
     def set_layout(self, layout: CacheLayout) -> None:
         """Install the engine's cache-group layout (before any admission)."""
-        if self.tables or self.window_tables or self._state_slots:
-            raise ValueError("cannot change layout with live allocations")
+        if self.tables or self.window_tables or self._state_slots or \
+                self._cached:
+            raise ValueError("cannot change layout with live allocations "
+                             "or cached prefix blocks")
         self.layout = layout
 
     # -- queries ----------------------------------------------------------------
@@ -204,17 +242,27 @@ class BlockAllocator:
 
     @property
     def n_free(self) -> int:
-        return len(self._free)
+        """Allocatable blocks: the free list and the refcount-0 cached
+        blocks (the prefix cache is reclaimable capacity, not pressure)."""
+        return len(self._free) + len(self._cached)
 
     @property
     def n_in_use(self) -> int:
         return self.config.n_blocks - self.n_free
+
+    def pressure(self) -> float:
+        """Fraction of the block pool allocated, in [0, 1]."""
+        return self.n_in_use / self.config.n_blocks \
+            if self.config.n_blocks else 0.0
 
     def _global_blocks(self, n_tokens: int) -> int:
         """Global-table blocks covering ``n_tokens`` (none without a global
         group)."""
         return self.config.blocks_for(n_tokens) if self.layout.has_global \
             else 0
+
+    def _sharing(self) -> bool:
+        return self.layout.sharable and self.layout.has_global
 
     def blocks_needed(self, n_tokens: int,
                       reserve_tokens: Optional[int] = None) -> int:
@@ -258,19 +306,69 @@ class BlockAllocator:
 
     # -- lifecycle ---------------------------------------------------------------
     def _claim(self, n: int, what: str) -> list[int]:
+        """Pop ``n`` blocks: the free list first, then LRU eviction of
+        refcount-0 cached blocks (with their index entries)."""
         if n > self.n_free:
             raise CacheExhausted(
-                f"need {n} blocks for {what}, {self.n_free} free")
-        return [self._free.pop() for _ in range(max(0, n))]
+                f"need {n} blocks for {what}, {self.n_free} allocatable "
+                f"({len(self._free)} free + {len(self._cached)} cached)")
+        return [self._free.pop() if self._free else self._evict_lru()
+                for _ in range(max(0, n))]
+
+    def _evict_lru(self) -> int:
+        """Evict the least recently used cached block from the index.  Its
+        chain's later blocks may stay indexed: a lookup stops at the first
+        miss, so they are unreachable and age out on their own."""
+        block, _ = self._cached.popitem(last=False)
+        if self._ref.get(block):
+            raise AllocatorInvariantError(
+                f"cached block {block} has refcount {self._ref[block]}")
+        h = self._hash_of.pop(block)
+        if self._index.get(h) == block:
+            del self._index[h]
+        self.stats["evictions"] += 1
+        return block
+
+    def _retain(self, block: int) -> None:
+        """One more live reference to a global block (out of the cached
+        pool on the 0 -> 1 transition)."""
+        r = self._ref.get(block, 0)
+        if r == 0:
+            self._cached.pop(block, None)
+        self._ref[block] = r + 1
+
+    def _release(self, block: int) -> None:
+        """One live reference less; at refcount 0 a committed block parks
+        in the LRU cached pool, any other returns to the free list."""
+        r = self._ref.get(block)
+        if r is None:
+            raise AllocatorInvariantError(
+                f"block {block} released with no live reference "
+                "(double free?)")
+        if r > 1:
+            self._ref[block] = r - 1
+            return
+        del self._ref[block]
+        if block in self._hash_of:
+            self._tick += 1
+            self._cached[block] = self._tick
+        else:
+            self._free.append(block)
 
     def allocate(self, slot: int, n_tokens: int, *,
-                 reserve_tokens: Optional[int] = None) -> list[int]:
+                 reserve_tokens: Optional[int] = None,
+                 block_hashes=None) -> list[int]:
         """Claim blocks for a request admitted into ``slot`` holding
         ``n_tokens`` (prompt + first generated token); with
         ``reserve_tokens`` also reserve blocks for its worst case (its
         ring at the cap); with a window group place its ring; with a
-        recurrent group also take the slot's state slot.  Returns the
-        slot's global block ids (none without a global group)."""
+        recurrent group also take the slot's state slot.  With a sharable
+        layout, ``block_hashes`` (the prompt's chain) maps the longest
+        indexed prefix read-only into the head of the table
+        (``matched_tokens[slot]`` says how many tokens it covers) and only
+        the rest is claimed fresh; the block holding the first generated
+        token is past the chain, so the tail is always private.  Returns
+        the slot's global block ids (none without a global group)."""
         if slot in self.tables:
             raise AllocatorInvariantError(
                 f"slot {slot} already has an allocation")
@@ -278,10 +376,33 @@ class BlockAllocator:
             raise CacheExhausted(
                 f"need {self.blocks_needed(n_tokens, reserve_tokens)} blocks "
                 f"for {n_tokens} tokens, {self.n_available()} available "
-                f"({self.n_free} free, {self.outstanding_blocks()} reserved)")
-        table = self._claim(self._global_blocks(n_tokens), f"slot {slot}")
+                f"({self.n_free} allocatable, "
+                f"{self.outstanding_blocks()} reserved)")
+        need = self._global_blocks(n_tokens)
+        self.stats["admissions"] += 1
+        table: list[int] = []
+        if block_hashes and self._sharing():
+            for h in block_hashes:
+                block = self._index.get(h)
+                if block is None or len(table) >= need:
+                    break
+                table.append(block)
+            self.stats["lookup_tokens"] += \
+                len(block_hashes) * self.config.block_size
+            self.stats["hit_tokens"] += len(table) * self.config.block_size
+            if table:
+                self.stats["hit_admissions"] += 1
+            for block in table:
+                self._retain(block)
+        matched = len(table)
+        fresh = self._claim(need - matched, f"slot {slot}")
+        for block in fresh:
+            self._retain(block)
+        table.extend(fresh)
         self.tables[slot] = table
         self._tokens[slot] = n_tokens
+        self.matched_tokens[slot] = matched * self.config.block_size
+        self._slot_hashes[slot] = tuple(block_hashes or ())
         if reserve_tokens is not None and self.layout.has_global:
             self._reserve[slot] = self.config.blocks_for(reserve_tokens)
         if self.layout.window:
@@ -328,6 +449,8 @@ class BlockAllocator:
                     f"slot {slot}: needs {need} more blocks ({extra} beyond "
                     f"its reservation), {self.n_available()} available")
         fresh = self._claim(max(0, need), f"slot {slot}")
+        for block in fresh:
+            self._retain(block)
         self.tables[slot].extend(fresh)
         self._tokens[slot] = n_tokens_total
         return fresh
@@ -369,10 +492,14 @@ class BlockAllocator:
     def truncate(self, slot: int, n_tokens_total: int) -> list[int]:
         """Shrink ``slot``'s global table to cover ``n_tokens_total``
         resident tokens: the speculative rewind past rejected draft rows.
-        Whole tail blocks only are freed (a partly vacated tail block stays:
-        its stale rows sit past the slot's position, where no query reads
-        them, and the next accepted token overwrites them).  Returns the
-        freed block ids; they re-enter the free list so the next growth
+        Whole tail blocks only are released (a partly vacated tail block
+        stays: its stale rows sit past the slot's position, where no query
+        reads them, and the next accepted token overwrites them).  A
+        shared or indexed block in the dropped tail is an
+        ``AllocatorInvariantError``: decode tails are private (admission
+        forks the boundary block before the first decode write, and a
+        rewind never reaches back into the committed prompt).  Returns the
+        released block ids; they re-enter the free list so the next growth
         reclaims them first, in table order."""
         if slot not in self.tables:
             raise AllocatorInvariantError(f"slot {slot} has no allocation")
@@ -383,9 +510,15 @@ class BlockAllocator:
         table = self.tables[slot]
         keep = self.config.blocks_for(n_tokens_total) \
             if self.layout.has_global else len(table)
+        for idx in range(keep, len(table)):
+            if self.is_block_shared(slot, idx):
+                raise AllocatorInvariantError(
+                    f"slot {slot}: rewind would drop shared/indexed block "
+                    f"{table[idx]} (table entry {idx})")
         freed = table[keep:]
         del table[keep:]
-        self._free.extend(reversed(freed))
+        for block in reversed(freed):
+            self._release(block)
         self._tokens[slot] = n_tokens_total
         return freed
 
@@ -404,16 +537,21 @@ class BlockAllocator:
         return freed
 
     def free_slot(self, slot: int) -> int:
-        """Return every block of ``slot``, its global table's and its
-        ring's, to the free list (in table order, so the next claims reuse
-        them first) and release its state slot; returns how many
-        blocks."""
+        """Reclaim every resource of ``slot``: its global table's entries
+        are released (a block another slot references stays live, a
+        committed one at refcount 0 parks in the cached pool, the rest
+        return to the free list in table order, so the next claims reuse
+        them first), its ring's blocks are freed and its state slot is
+        let go.  Returns how many table and ring entries it gave up."""
         if slot not in self.tables:
             raise AllocatorInvariantError(f"slot {slot} has no allocation")
         blocks = self.tables.pop(slot)
         self._tokens.pop(slot)
         self._reserve.pop(slot, None)
-        self._free.extend(reversed(blocks))
+        self._slot_hashes.pop(slot, None)
+        self.matched_tokens.pop(slot, None)
+        for block in reversed(blocks):
+            self._release(block)
         ring = self.window_tables.pop(slot, None)
         if ring:
             ring_blocks = [ring[i] for i in sorted(ring, reverse=True)]
@@ -421,6 +559,249 @@ class BlockAllocator:
             blocks = blocks + ring_blocks
         self._state_slots.discard(slot)
         return len(blocks)
+
+    # -- prefix cache -----------------------------------------------------------
+    def match_tokens(self, block_hashes) -> int:
+        """Tokens the longest indexed prefix of ``block_hashes`` covers now:
+        a read-only peek (no claim, no refcount, no LRU touch), the router's
+        affinity signal; 0 without a sharable layout."""
+        if not self._sharing():
+            return 0
+        n = 0
+        for h in block_hashes or ():
+            if h not in self._index:
+                break
+            n += 1
+        return n * self.config.block_size
+
+    def lookup_block(self, block_hash: str) -> Optional[int]:
+        """The physical block committed under ``block_hash``, or None: the
+        export side of a prefill -> decode handoff reads pages through
+        it."""
+        return self._index.get(block_hash)
+
+    def inject_cached(self, block_hashes) -> list[tuple]:
+        """Install content produced elsewhere into the index: for each hash
+        of the chain, in order, claim one block and park it committed at
+        refcount 0 in the cached pool.  Returns the ``(hash, block)``
+        pairs claimed; the caller copies the pages into those blocks
+        before any admission can match them.  Hashes already indexed are
+        skipped; injection stops at the first hash the pool cannot take,
+        or that would evict a block this call injected (a shorter chain
+        degrades gracefully: the importer recomputes the rest).  Requires
+        a sharable layout."""
+        if not self._sharing():
+            raise AllocatorInvariantError(
+                "inject_cached requires a sharable global layout")
+        injected: list[tuple] = []
+        own = set()
+        for h in block_hashes or ():
+            if h in self._index:
+                continue
+            if not self._free and self._cached and \
+                    next(iter(self._cached)) in own:
+                break
+            try:
+                block = self._claim(1, f"injected prefix block {h[:12]}")[0]
+            except CacheExhausted:
+                break
+            self._index[h] = block
+            self._hash_of[block] = h
+            self._tick += 1
+            self._cached[block] = self._tick
+            injected.append((h, block))
+            own.add(block)
+        return injected
+
+    def commit_slot(self, slot: int) -> int:
+        """Publish ``slot``'s full prompt blocks into the index (once its
+        prompt is resident, when its prefill completes).  Blocks already
+        indexed (its matched prefix, or content another slot committed
+        first) are skipped, so a hash maps to one block.  Returns how many
+        blocks were newly indexed; 0 without a sharable layout."""
+        if not self._sharing():
+            return 0
+        if slot not in self.tables:
+            raise AllocatorInvariantError(f"slot {slot} has no allocation")
+        fresh = 0
+        for h, block in zip(self._slot_hashes.get(slot, ()),
+                            self.tables[slot]):
+            if self._hash_of.get(block) == h:
+                continue                      # already carries this content
+            if h in self._index or block in self._hash_of:
+                continue                      # content owned elsewhere
+            self._index[h] = block
+            self._hash_of[block] = h
+            fresh += 1
+        self.stats["commits"] += fresh
+        return fresh
+
+    def is_block_shared(self, slot: int, block_idx: int) -> bool:
+        """True when a write to ``slot``'s table entry ``block_idx`` would
+        be seen beyond the slot: another slot references the block, or the
+        index expects its content to stay."""
+        block = self.tables[slot][block_idx]
+        return self._ref.get(block, 0) > 1 or block in self._hash_of
+
+    def ensure_private(self, slot: int, block_idx: int) -> Optional[tuple]:
+        """Copy-on-write: give ``slot`` a private block at table entry
+        ``block_idx`` when the current one is shared or indexed.  Returns
+        ``(src, dst)`` when forked (the caller copies the pages src -> dst
+        before writing), else None.  The source keeps its index entry."""
+        table = self.tables[slot]
+        src = table[block_idx]
+        if not self.is_block_shared(slot, block_idx):
+            return None
+        dst = self._claim(1, f"slot {slot} CoW fork")[0]
+        self._retain(dst)
+        table[block_idx] = dst
+        self._release(src)
+        self.stats["cow_forks"] += 1
+        return src, dst
+
+    def copy_block(self, src: int, dst: int, group: str = "global") -> None:
+        """Copy one block's pages across the ``group`` stores, in place."""
+        for store, g in zip(self.stores, self.store_groups):
+            if g == group:
+                store.k_pages[:, dst].copy_(store.k_pages[:, src])
+                store.v_pages[:, dst].copy_(store.v_pages[:, src])
+
+    def drop_cached(self) -> int:
+        """Evict every cached (refcount-0) block to the free list; returns
+        how many.  The index keeps only live content afterwards."""
+        n = 0
+        while self._cached:
+            self._free.append(self._evict_lru())
+            n += 1
+        return n
+
+    def cached_blocks(self) -> int:
+        return len(self._cached)
+
+    def prefix_stats(self) -> dict:
+        """The cumulative prefix-cache counters and the pool's sharing
+        state now."""
+        shared = sum(1 for r in self._ref.values() if r > 1)
+        saved = sum(r - 1 for r in self._ref.values() if r > 1)
+        return dict(self.stats, cached_blocks=len(self._cached),
+                    shared_blocks=shared, saved_blocks=saved,
+                    indexed_blocks=len(self._index))
+
+    def shared_saved_bytes(self) -> int:
+        """Device bytes prefix sharing saves now: one global block's bytes
+        per extra reference to a live block."""
+        bb = sum(s.block_bytes for s, g in zip(self.stores,
+                                               self.store_groups)
+                 if g == "global")
+        return sum(r - 1 for r in self._ref.values() if r > 1) * bb
+
+    # -- invariants --------------------------------------------------------------
+    def check(self) -> None:
+        """Refcounts equal the tables' references; every block is free,
+        cached, live or in exactly one ring; the index is a bijection onto
+        committed blocks, none of them free, and cached blocks are
+        committed with refcount 0; each table covers exactly its slot's
+        tokens, every ring belongs to a live slot and with a window group
+        every live slot has one, reservations fit the allocatable pool,
+        and with a recurrent group every live slot holds exactly one state
+        slot."""
+        refs: dict[int, int] = {}
+        for table in self.tables.values():
+            for block in table:
+                refs[block] = refs.get(block, 0) + 1
+        if refs != self._ref:
+            diff = {b: (refs.get(b), self._ref.get(b))
+                    for b in set(refs) | set(self._ref)
+                    if refs.get(b) != self._ref.get(b)}
+            raise AllocatorInvariantError(
+                f"refcount ledger disagrees with tables "
+                f"(block: tables vs ledger): {diff}")
+        window = [b for ring in self.window_tables.values()
+                  for b in ring.values()]
+        everything = self._free + list(self._cached) + list(self._ref) + \
+            window
+        if len(set(everything)) != len(everything):
+            raise AllocatorInvariantError(
+                "a block is owned twice across free/cached/live/window")
+        if sorted(everything) != list(range(self.config.n_blocks)):
+            raise AllocatorInvariantError(
+                f"{self.config.n_blocks - len(everything)} blocks "
+                "unaccounted for")
+        for h, block in self._index.items():
+            if self._hash_of.get(block) != h:
+                raise AllocatorInvariantError(
+                    f"index maps {h!r} to block {block} whose committed "
+                    f"hash is {self._hash_of.get(block)!r}")
+        free_set = set(self._free)
+        for block in self._hash_of:
+            if block in free_set:
+                raise AllocatorInvariantError(
+                    f"committed block {block} is on the free list")
+        for block in self._cached:
+            if block not in self._hash_of:
+                raise AllocatorInvariantError(
+                    f"cached block {block} has no committed hash")
+        for slot, table in self.tables.items():
+            if len(table) != self._global_blocks(self._tokens[slot]):
+                raise AllocatorInvariantError(
+                    f"slot {slot}: {len(table)} blocks for "
+                    f"{self._tokens[slot]} tokens")
+        if set(self.window_tables) - set(self.tables):
+            raise AllocatorInvariantError(
+                "window rings held by no live slot: "
+                f"{sorted(set(self.window_tables) - set(self.tables))}")
+        if self.layout.window and set(self.window_tables) != \
+                set(self.tables):
+            raise AllocatorInvariantError(
+                "live slots without a window ring: "
+                f"{sorted(set(self.tables) - set(self.window_tables))}")
+        if set(self._reserve) - set(self.tables):
+            raise AllocatorInvariantError("reservation without a table")
+        if self.outstanding_blocks() > self.n_free:
+            raise AllocatorInvariantError(
+                f"reservations outstanding ({self.outstanding_blocks()}) "
+                f"exceed allocatable blocks ({self.n_free})")
+        if self._state_slots - set(self.tables):
+            raise AllocatorInvariantError(
+                "state slots held by no live slot: "
+                f"{sorted(self._state_slots - set(self.tables))}")
+        if self.layout.state_slots and \
+                self._state_slots != set(self.tables):
+            raise AllocatorInvariantError(
+                "live slots without a state slot: "
+                f"{sorted(set(self.tables) - self._state_slots)}")
+        if len(self._state_slots) > self.layout.state_slots:
+            raise AllocatorInvariantError(
+                f"{len(self._state_slots)} state slots in use, layout has "
+                f"{self.layout.state_slots}")
+
+    def check_no_leaks(self) -> None:
+        """With no live slot, every block is free or cached (refcount 0)
+        and no ring or state slot is held; then ``check()``."""
+        if self.tables:
+            raise AllocatorInvariantError(
+                f"live tables remain: {sorted(self.tables)}")
+        if self.window_tables:
+            raise AllocatorInvariantError(
+                f"live window rings remain: {sorted(self.window_tables)}")
+        if self._state_slots:
+            raise AllocatorInvariantError(
+                f"live state slots remain: {sorted(self._state_slots)}")
+        if len(self._free) + len(self._cached) != self.config.n_blocks:
+            leaked = self.config.n_blocks - len(self._free) \
+                - len(self._cached)
+            raise AllocatorInvariantError(f"{leaked} blocks leaked")
+        self.check()
+
+    # -- physical store ----------------------------------------------------------
+    def attach_store(self, store: PagedKVStore,
+                     group: str = "global") -> None:
+        """Bind a physical store whose blocks the ``group`` ("global" or
+        "window") tables address."""
+        if store.config != self.config:
+            raise ValueError("store geometry does not match allocator config")
+        self.stores.append(store)
+        self.store_groups.append(group)
 
     def padded_table(self, slot: int, width: int) -> list[int]:
         """``slot``'s table padded to ``width`` entries with the null
@@ -445,84 +826,6 @@ class BlockAllocator:
     def window_blocks_in_use(self) -> int:
         return sum(len(ring) for ring in self.window_tables.values())
 
-    # -- invariants --------------------------------------------------------------
-    def check(self) -> None:
-        """Every block is free or in exactly one table or ring, each table
-        covers exactly its slot's tokens, every ring belongs to a live slot
-        and with a window group every live slot has one, reservations fit
-        the free pool, and with a recurrent group every live slot holds
-        exactly one state slot."""
-        owned = [b for t in self.tables.values() for b in t]
-        window = [b for ring in self.window_tables.values()
-                  for b in ring.values()]
-        everything = self._free + owned + window
-        if len(set(everything)) != len(everything):
-            raise AllocatorInvariantError("a block is owned twice")
-        if sorted(everything) != list(range(self.config.n_blocks)):
-            raise AllocatorInvariantError(
-                f"{self.config.n_blocks - len(everything)} blocks "
-                "unaccounted for")
-        for slot, table in self.tables.items():
-            if len(table) != self._global_blocks(self._tokens[slot]):
-                raise AllocatorInvariantError(
-                    f"slot {slot}: {len(table)} blocks for "
-                    f"{self._tokens[slot]} tokens")
-        if set(self.window_tables) - set(self.tables):
-            raise AllocatorInvariantError(
-                "window rings held by no live slot: "
-                f"{sorted(set(self.window_tables) - set(self.tables))}")
-        if self.layout.window and set(self.window_tables) != \
-                set(self.tables):
-            raise AllocatorInvariantError(
-                "live slots without a window ring: "
-                f"{sorted(set(self.tables) - set(self.window_tables))}")
-        if set(self._reserve) - set(self.tables):
-            raise AllocatorInvariantError("reservation without a table")
-        if self.outstanding_blocks() > self.n_free:
-            raise AllocatorInvariantError(
-                f"reservations outstanding ({self.outstanding_blocks()}) "
-                f"exceed free blocks ({self.n_free})")
-        if self._state_slots - set(self.tables):
-            raise AllocatorInvariantError(
-                "state slots held by no live slot: "
-                f"{sorted(self._state_slots - set(self.tables))}")
-        if self.layout.state_slots and \
-                self._state_slots != set(self.tables):
-            raise AllocatorInvariantError(
-                "live slots without a state slot: "
-                f"{sorted(set(self.tables) - self._state_slots)}")
-        if len(self._state_slots) > self.layout.state_slots:
-            raise AllocatorInvariantError(
-                f"{len(self._state_slots)} state slots in use, layout has "
-                f"{self.layout.state_slots}")
-
-    def check_no_leaks(self) -> None:
-        """With no live slot, every block is free and no ring or state
-        slot is held; then ``check()``."""
-        if self.tables:
-            raise AllocatorInvariantError(
-                f"live tables remain: {sorted(self.tables)}")
-        if self.window_tables:
-            raise AllocatorInvariantError(
-                f"live window rings remain: {sorted(self.window_tables)}")
-        if self._state_slots:
-            raise AllocatorInvariantError(
-                f"live state slots remain: {sorted(self._state_slots)}")
-        if len(self._free) != self.config.n_blocks:
-            raise AllocatorInvariantError(
-                f"{self.config.n_blocks - len(self._free)} blocks leaked")
-        self.check()
-
-    # -- physical store ----------------------------------------------------------
-    def attach_store(self, store: PagedKVStore,
-                     group: str = "global") -> None:
-        """Bind a physical store whose blocks the ``group`` ("global" or
-        "window") tables address."""
-        if store.config != self.config:
-            raise ValueError("store geometry does not match allocator config")
-        self.stores.append(store)
-        self.store_groups.append(group)
-
     def resident_bytes(self) -> int:
         """Device bytes pinned by allocated blocks across the stores and by
         live state slots."""
@@ -535,7 +838,7 @@ class BlockAllocator:
         has stores or blocks in use), ``"recurrent"`` state slots in use
         times the layout's bytes per slot."""
         out: dict[str, int] = {}
-        in_use = {"global": sum(len(t) for t in self.tables.values()),
+        in_use = {"global": len(self._ref),
                   "window": self.window_blocks_in_use()}
         for group, n in in_use.items():
             block_bytes = sum(s.block_bytes for s, g in
@@ -553,3 +856,67 @@ class BlockAllocator:
                                            for s in self.stores)
         return total + self.layout.state_slots * \
             self.layout.state_bytes_per_slot
+
+
+class BlockTransferBuffer:
+    """Staging buffer of the prefill -> decode block handoff between engine
+    replicas.
+
+    A prefill replica commits a finished prompt's full blocks to its index
+    and exports their pages here, keyed by content hash
+    (``ContinuousEngine.export_prefix_blocks``: copies, since the port's
+    pools are written in place and the exporting replica may reuse the
+    block); the router delivers the chain to a decode replica, which claims
+    blocks for the payloads and parks them committed at refcount 0 in its
+    own index (``import_prefix_blocks``), so that the request's admission
+    there is an ordinary full prefix hit.  The buffer owns no pool block on
+    either side, so no refcount passes through it.
+
+    Failure degrades, never corrupts: a payload dropped here (FIFO at
+    ``capacity_blocks``, 0 = unbounded) or a chain the importing pool
+    cannot take whole only means the decode replica recomputes those
+    positions; ``take_chain`` returns a prefix of the requested chain.
+    """
+
+    def __init__(self, capacity_blocks: int = 0):
+        if capacity_blocks < 0:
+            raise ValueError("capacity_blocks must be >= 0")
+        self.capacity_blocks = capacity_blocks
+        self._entries: OrderedDict[str, object] = OrderedDict()
+        self.stats: dict[str, int] = {"staged": 0, "delivered": 0,
+                                      "dropped": 0}
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def put(self, block_hash: str, payload) -> None:
+        """Stage one block's pages under its hash; staging a held hash again
+        replaces its payload and refreshes its recency."""
+        if block_hash in self._entries:
+            self._entries.move_to_end(block_hash)
+            self._entries[block_hash] = payload
+            return
+        while self.capacity_blocks and \
+                len(self._entries) >= self.capacity_blocks:
+            self._entries.popitem(last=False)
+            self.stats["dropped"] += 1
+        self._entries[block_hash] = payload
+        self.stats["staged"] += 1
+
+    def put_chain(self, entries) -> None:
+        """Stage an exported ``(hash, payload)`` chain, head first."""
+        for h, payload in entries:
+            self.put(h, payload)
+
+    def take_chain(self, block_hashes) -> list[tuple]:
+        """Remove and return the longest staged prefix of ``block_hashes``
+        as ``(hash, payload)`` pairs, stopping at the first hash not held
+        (a later block could never be matched anyway)."""
+        out: list[tuple] = []
+        for h in block_hashes or ():
+            payload = self._entries.pop(h, None)
+            if payload is None:
+                break
+            out.append((h, payload))
+        self.stats["delivered"] += len(out)
+        return out

@@ -1,10 +1,11 @@
 """Serving: step factories, the static-batch ``Engine`` and the
 continuous-batching ``ContinuousEngine``.
 
-A port of ``repro.serve.engine`` but its prefix cache: dense and paged
-lanes; whole, bucketed and chunked prefill; per-request sampling;
-self-speculative decoding; worst-case or lazy admission pricing with
-youngest-slot preemption.  ``ContinuousEngine`` admits queued requests
+A port of ``repro.serve.engine``: dense and paged lanes; whole, bucketed
+and chunked prefill; per-request sampling; self-speculative decoding;
+worst-case or lazy admission pricing with youngest-slot preemption; the
+content-addressed prefix cache and the block export and import of the
+prefill -> decode handoff.  ``ContinuousEngine`` admits queued requests
 into free decode lanes mid-stream (``SlotScheduler`` + ``BlockAllocator``)
 and serves them in one of two regimes:
 
@@ -39,6 +40,17 @@ and recurrent state past the first rejection.  ``pricing="lazy"``
 reserves only a request's prefill at admission; a mid-decode
 ``CacheExhausted`` then preempts the youngest slot and requeues its
 request at the head of the queue (``cache_blocks=`` undersizes the pool).
+
+``prefix_cache=True`` (paged, and only for archs whose cache content is a
+function of the token prefix, ``lm.prefix_sharable_reason``) shares the
+blocks of a prompt's longest committed prefix read-only at admission.
+Chunked prefill starts at the first uncached position; whole prefill
+still computes the whole prompt and masks the writes below it
+(``insert_paged_prompt(skip_below=)``).  At least the last prompt position
+is recomputed, for the first token's logits; when it falls inside a
+shared block (a block-aligned whole hit), that block is forked
+copy-on-write (``lm.copy_paged_block``) before anything writes it.  A
+finished prefill commits its full prompt blocks to the index.
 
 ``bucket_prompts=True`` right-pads whole prefills to power-of-two buckets
 (``bucket_length``): pad rows are position-masked in the cache and freeze
@@ -305,8 +317,8 @@ class ContinuousEngine:
     bucketed, or in chunks of ``prefill_chunk`` rows, one chunk per engine
     step), run one decode step over the decoding lanes (or, with
     ``speculate``, one speculative round per lane), retire finished slots
-    and reclaim their blocks, rings and state slots.  The prefix cache
-    raises ``NotImplementedError``.
+    and reclaim their blocks, rings and state slots (with ``prefix_cache``,
+    committed prompt blocks stay cached for later admissions to share).
 
     ``pricing="worst"`` (default) reserves each request's worst case at
     admission, so decode never exhausts the pool; ``"lazy"`` reserves the
@@ -349,8 +361,6 @@ class ContinuousEngine:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.prefix_cache:
-            raise NotImplementedError("prefix_cache is not ported yet")
         _check_servable(self.cfg)
         if self.plan is not None:
             # full-config equality, not name equality: cfg.reduced() keeps
@@ -385,6 +395,14 @@ class ContinuousEngine:
         if self.prefill_chunk and not self.paged:
             raise ValueError("prefill_chunk requires paged=True (chunks are "
                              "written straight into the page pools)")
+        if self.prefix_cache:
+            if not self.paged:
+                raise ValueError("prefix_cache requires paged=True (block "
+                                 "reuse shares physical pages)")
+            reason = lm.prefix_sharable_reason(self.cfg)
+            if reason is not None:
+                raise ValueError(f"{self.cfg.name}: prefix cache "
+                                 f"unavailable — {reason}")
         if self.speculate < 0:
             raise ValueError("speculate must be >= 0")
         if self.speculate and not self.paged:
@@ -434,9 +452,12 @@ class ContinuousEngine:
         self._samp: dict[int, SamplingParams] = {}
         self._now = 0
         self._rids: set = set()
-        # slot -> [prompt, chunks done] while chunk-prefilling
+        # slot -> [prompt, chunks done, skip] while chunk-prefilling (skip:
+        # the prefix-cache positions not recomputed)
         self._prefilling: dict[int, list] = {}
-        self._preempted_last = 0       # scheduler.preemptions at last step
+        # (preemptions, hit_tokens, lookup_tokens) at the last recorded
+        # step: _record_step reports each step's deltas
+        self._stats_last = (0, 0, 0)
 
     @staticmethod
     def decode_shape_for(kv_len: int, n_slots: int) -> ShapeConfig:
@@ -488,7 +509,8 @@ class ContinuousEngine:
             state_slots=self.n_slots if self._has_state else 0,
             state_bytes_per_slot=lm.state_bytes_per_slot(self.cfg,
                                                          self._caches),
-            prefill_chunk=self.prefill_chunk))
+            prefill_chunk=self.prefill_chunk,
+            sharable=self.prefix_cache))
         self._null_row = torch.full((self._max_blocks,),
                                     cache_cfg.null_block, dtype=torch.int32,
                                     device=self.device)
@@ -515,6 +537,59 @@ class ContinuousEngine:
         self._rows: dict[int, dict] = {}       # prefilling slot -> rows
         self._host_pos: dict[int, int] = {}
 
+    @property
+    def now(self) -> int:
+        """The engine step; ``submit`` arrivals are absolute against it."""
+        return self._now
+
+    def _global_stores(self) -> list:
+        """The stores of the global-attention pools, in leaf order."""
+        return [s for s, g in zip(self.allocator.stores,
+                                  self.allocator.store_groups)
+                if g == "global"]
+
+    def export_prefix_blocks(self, block_hashes) -> list[tuple]:
+        """The pages of the committed blocks backing the longest resident
+        prefix of ``block_hashes``: the export side of a prefill -> decode
+        handoff (``serve.cache.BlockTransferBuffer``).  Each entry is
+        ``(hash, payload)``, the payload one ``(k_page, v_page)`` pair per
+        global pool leaf in ``lm.paged_cache_leaves`` order (the same on
+        every replica of a config).  The pages are copies: the pools are
+        written in place, and this replica may evict and reuse a block
+        while its payload waits in the buffer.  The blocks stay this
+        replica's."""
+        if not self.prefix_cache:
+            raise ValueError("export_prefix_blocks requires prefix_cache "
+                             "(the handoff is keyed by the content index)")
+        out: list[tuple] = []
+        for h in block_hashes or ():
+            block = self.allocator.lookup_block(h)
+            if block is None:
+                break
+            out.append((h, tuple((s.k_pages[:, block].clone(),
+                                  s.v_pages[:, block].clone())
+                                 for s in self._global_stores())))
+        return out
+
+    def import_prefix_blocks(self, entries) -> int:
+        """Install exported ``(hash, payload)`` chain entries into this
+        replica's pool as committed refcount-0 cached blocks (the import
+        side of the handoff), writing the pages in place on this engine's
+        device; admitting a request whose chain they cover is then an
+        ordinary prefix hit.  Hashes already resident are skipped, and a
+        pool too full for the whole chain takes a prefix of it (the rest
+        is recomputed).  Returns how many blocks were installed."""
+        if not self.prefix_cache:
+            raise ValueError("import_prefix_blocks requires prefix_cache")
+        pairs = self.allocator.inject_cached([h for h, _ in entries])
+        by_hash = dict(entries)
+        for h, block in pairs:
+            for store, (k_page, v_page) in zip(self._global_stores(),
+                                               by_hash[h]):
+                store.k_pages[:, block].copy_(k_page)
+                store.v_pages[:, block].copy_(v_page)
+        return len(pairs)
+
     def submit(self, prompt, max_new_tokens: int, *, rid=None,
                arrival: int = 0, eos_id: Optional[int] = None,
                sampling: Optional[SamplingParams] = None) -> object:
@@ -533,9 +608,12 @@ class ContinuousEngine:
             self._next_rid += 1
         elif rid in self._rids:
             raise ValueError(f"duplicate request id {rid!r}")
+        hashes = (lm.prompt_block_hashes(prompt, self.block_size)
+                  if self.prefix_cache else None)
         self.scheduler.submit(Request(rid=rid, prompt=prompt,
                                       max_new_tokens=max_new_tokens,
                                       arrival=arrival, eos_id=eos_id,
+                                      block_hashes=hashes,
                                       sampling=sampling))
         self._rids.add(rid)
         return rid
@@ -616,6 +694,20 @@ class ContinuousEngine:
             act.first_token_step = self._now
             act.tokens.append(int(tok[0]))
             return
+        # prefix-cache hit: positions below ``skip`` are resident in shared
+        # blocks.  At least the last prompt position is recomputed (for the
+        # first token's logits); when that pulls the first recomputed
+        # position back into a shared block (a block-aligned whole hit),
+        # the block is forked copy-on-write before anything writes it
+        skip = 0
+        if self.prefix_cache:
+            matched = self.allocator.matched_tokens.get(slot, 0)
+            skip = min(matched, start_pos - 1)
+            if matched > skip:
+                pair = self.allocator.ensure_private(
+                    slot, skip // self.block_size)
+                if pair is not None:
+                    lm.copy_paged_block(self.cfg, self._caches, *pair)
         rows = {group: self._refresh_row(slot, group)
                 for group in self._tables}
         if self.prefill_chunk:
@@ -625,15 +717,19 @@ class ContinuousEngine:
             if self._has_state:
                 lm.zero_state_lane(self.cfg, self._caches, slot)
             self._rows[slot] = rows
-            self._prefilling[slot] = [prompt, 0]
+            self._prefilling[slot] = [prompt, 0, skip]
             return
         tok, cache = self._full_prefill(
             prompt, self._first_token_args(slot, start_pos))
         # whole-prompt admission overwrites the lane's state slabs, so a
-        # reused lane needs no reset
+        # reused lane needs no reset; it recomputes the whole prompt and
+        # writes the rows from ``skip`` on (the shared ones stay read-only)
         lm.insert_paged_prompt(self.cfg, self._caches, cache, rows, slot,
                                block_size=self.block_size,
-                               null_block=self.allocator.config.null_block)
+                               null_block=self.allocator.config.null_block,
+                               skip_below=skip)
+        if self.prefix_cache:
+            self.allocator.commit_slot(slot)
         self._activate_lane(slot, tok[0], start_pos, rows)
         act.first_token_step = self._now
         act.tokens.append(int(tok[0]))
@@ -652,9 +748,9 @@ class ContinuousEngine:
     def _run_chunk(self, slot: int) -> bool:
         """Advance ``slot``'s chunked prefill by one chunk; returns True,
         with the decode lane activated, once the prompt is resident."""
-        prompt, done = self._prefilling[slot]
+        prompt, done, skip = self._prefilling[slot]
         C = self.prefill_chunk
-        start = done * C
+        start = skip + done * C                # past the cached positions
         total = prompt.shape[0]
         piece = prompt[start:start + C]
         valid = piece.shape[0]                 # real rows in this slice
@@ -678,6 +774,8 @@ class ContinuousEngine:
         if not final:
             return False
         del self._prefilling[slot]
+        if self.prefix_cache:
+            self.allocator.commit_slot(slot)
         self._activate_lane(slot, tok[0], total, self._rows.pop(slot))
         act = self.scheduler.active[slot]
         act.first_token_step = self._now
@@ -1017,8 +1115,11 @@ class ContinuousEngine:
                      decode_seconds: float, chunk_seconds: float,
                      drafted: int = 0, accepted: int = 0,
                      rewound: int = 0) -> None:
-        preempted = self.scheduler.preemptions - self._preempted_last
-        self._preempted_last = self.scheduler.preemptions
+        # per-step deltas of the cumulative ledgers
+        stats = self.allocator.stats
+        cur = (self.scheduler.preemptions, stats["hit_tokens"],
+               stats["lookup_tokens"])
+        prev, self._stats_last = self._stats_last, cur
         self.telemetry.record_step(
             step=now, seconds=time.perf_counter() - t0,
             active_slots=active_slots, n_slots=self.n_slots,
@@ -1031,5 +1132,9 @@ class ContinuousEngine:
             capacity_bytes=self.allocator.capacity_bytes(),
             prefill_seconds=prefill_seconds,
             decode_seconds=decode_seconds, chunk_seconds=chunk_seconds,
-            preemptions=preempted, drafted=drafted, accepted=accepted,
-            rewound_tokens=rewound)
+            preemptions=cur[0] - prev[0],
+            prefix_hit_tokens=cur[1] - prev[1],
+            prefix_lookup_tokens=cur[2] - prev[2],
+            shared_saved_bytes=self.allocator.shared_saved_bytes(),
+            cached_blocks=self.allocator.cached_blocks(),
+            drafted=drafted, accepted=accepted, rewound_tokens=rewound)

@@ -13,6 +13,9 @@ Two pricing modes (``pricing=``):
   on which the engine preempts the youngest slot (``preempt``) and
   requeues its request at the head of the queue.
 
+A router rebalancing its replicas moves queued requests only, the
+youngest first (``steal_newest``).
+
 Arrivals are in engine steps (one step = one batched decode).
 """
 
@@ -28,13 +31,18 @@ from .cache import BlockAllocator
 
 @dataclass
 class Request:
-    """One serving request: prompt token ids and a decode budget."""
+    """One serving request: prompt token ids and a decode budget.
+    ``block_hashes`` is the prompt's content hash chain over full cache
+    blocks (``models.lm.prompt_block_hashes``), filled in by the engine
+    when its prefix cache is on and matched by the allocator at
+    admission."""
 
     rid: object
     prompt: object                   # int sequence of token ids
     max_new_tokens: int
     arrival: int = 0                 # engine step at which it exists
     eos_id: Optional[int] = None     # stop early when this token is emitted
+    block_hashes: Optional[tuple] = None
     sampling: Optional[object] = None  # SamplingParams; None is greedy
 
     @property
@@ -108,7 +116,8 @@ class SlotScheduler:
 
     def admit(self, now: int) -> list[ActiveSlot]:
         """Admit arrived requests into free slots, FCFS, until the first
-        one that has not arrived yet or does not fit."""
+        one that has not arrived yet or does not fit; a request's
+        ``block_hashes`` go to the allocator for prefix matching."""
         admitted: list[ActiveSlot] = []
         while self._pending and self._free_slots:
             req = self._pending[0]
@@ -121,7 +130,8 @@ class SlotScheduler:
             self._pending.popleft()
             slot = heapq.heappop(self._free_slots)
             self.allocator.allocate(slot, req.prompt_len + 1,
-                                    reserve_tokens=reserve)
+                                    reserve_tokens=reserve,
+                                    block_hashes=req.block_hashes)
             act = ActiveSlot(request=req, slot=slot, admitted_at=now)
             self.active[slot] = act
             self.slot_admissions[slot] += 1
@@ -140,7 +150,8 @@ class SlotScheduler:
         """Evict the request in ``slot`` and requeue it at the head of the
         queue (first in FCFS order, so its re-admission, and its tokens,
         are those of an uninterrupted run).  Its generated tokens are
-        dropped: decoding restarts from the prompt.  The lazy pricing
+        dropped: decoding restarts from the prompt, and its re-admission
+        matches the prefix blocks it committed again.  The lazy pricing
         mode's safety net against a mid-decode ``CacheExhausted``."""
         act = self.active.pop(slot)
         self.allocator.free_slot(slot)
@@ -150,6 +161,13 @@ class SlotScheduler:
         self._pending.appendleft(act.request)
         self.preemptions += 1
         return act
+
+    def steal_newest(self) -> Optional[Request]:
+        """Pop and return the youngest queued request (the queue's tail),
+        or None when nothing is pending: fleet rebalancing takes from the
+        tail, so the rest of the queue keeps its FCFS order.  Admitted
+        requests are never touched."""
+        return self._pending.pop() if self._pending else None
 
     def has_work(self) -> bool:
         return bool(self._pending or self.active)

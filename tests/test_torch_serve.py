@@ -227,9 +227,9 @@ def test_continuous_engine_plain_equals_kernel_path_on_cpu(models):
 def test_engines_refuse_what_is_not_ported(models):
     _, cfg, _, tp = models
     kw = dict(kv_len=KV_LEN, device="cpu")
-    for paged in (True, False):
-        with pytest.raises(NotImplementedError, match="prefix_cache"):
-            ContinuousEngine(cfg, tp, paged=paged, prefix_cache=True, **kw)
+    # the prefix cache shares physical pages (the reference's check)
+    with pytest.raises(ValueError, match="prefix_cache requires paged"):
+        ContinuousEngine(cfg, tp, paged=False, prefix_cache=True, **kw)
     # the reference's checks: chunks are written into the page pools, and
     # the speculative rewind truncates block tables
     with pytest.raises(ValueError, match="prefill_chunk requires paged"):
