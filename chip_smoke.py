@@ -47,7 +47,11 @@ exit code:
    chunk whose last 9 rows are the scan's identity (a = 1, bx = 0) and a
    256-row bucket holding 131 real rows; 1e-4 on hs and h_final; each case
    also records whether the kernel equals ``ref.chunked_reference`` bit
-   for bit.
+   for bit.  Flash at deepseek-v2-lite's MLA prefill shape (H = KV = 16,
+   q/k head dim 192, v head dim 128) in both dtypes: causal prompts of 17,
+   131, 200 and 2048 rows, Sq = Skv of 1, 63, 64 and 65 without the causal
+   mask, and a 131-row prompt one element past an aligned address; and
+   the wrapper's refusal of other split pairs on CUDA tensors.
 4. kernel_timing — both attention kernels in bf16 at TinyLlama's and
    recurrentgemma's head shapes, and the scans at mamba2-370m's and
    recurrentgemma-2b's (the SSD kernel's bf16 body; the RG-LRU kernel with
@@ -58,7 +62,9 @@ exit code:
    yardstick; the port never calls it); at the trace's shapes (paged: its
    first four lanes 16 tokens in; flash and the scans: its 131-row prompt)
    and a long one each (paged: one lane 4096 rows in; flash and the scans:
-   a 2048-row prompt).
+   a 2048-row prompt); flash also at deepseek-v2-lite's MLA shape (q/k
+   192, v 128) at both lengths, with the kernels SDPA ran there (its
+   backend).
 5. serve   — the three main paths, one after the other (each followed by
    its timing, so that one path's weights never count in the other's
    peak memory), each with every launch counter zeroed
@@ -79,7 +85,18 @@ exit code:
    window of 32 is shorter than the prompts, so window rings free blocks;
    at full width 18 RG-LRU-scan and 8 flash launches per prefill, 8 paged
    launches per decode step, no SSD launch, and no block, ring or state
-   slot left in use.
+   slot left in use.  After the paper-mlp serve of phase ``adapt``,
+   deepseek-v2-lite-16b (27 MLA layers, layer 0 with a dense FFN and 26
+   with 64 routed experts top-6 and 2 shared, every serving forward MoE-
+   lossless) through ``serve``, ``adapt``, ``serve_modes``, run (a) of
+   ``prefix_router`` and ``timing``: 27 flash launches per whole prefill
+   and no other kernel (MLA decodes and chunks in plain einsums over the
+   latents), its init tree's parameter count beside the reference's
+   ``param_count()``, and peak memory of the f32 run (62.8 GB of
+   weights).  A diverging request of an MoE model also gives the plain
+   path's least gap between the k-th and (k+1)-th router probability
+   there (``router_gap``).  Its sampling, speculation, lazy pricing and
+   router fleets are left to the CPU tests.
    adapt — after each path's ``serve``: the paper's §3 assistants
    (``adapt_plan``) over that plan under the run's
    ``device_interference`` and ``assistant_callback``; every delta
@@ -165,6 +182,9 @@ exit code:
    (device time by kernel name, the device's busy share, and each port
    kernel's device time per launch on the path, with the kernel functions
    it ran: mamba2's must be the SSD kernel's tensor-core body only).
+   deepseek-v2-lite's bf16 trace runs after its f32 weights are freed
+   (the bf16 ones made from the same seed): tokens/s, decode step,
+   prefill, peak memory, launches and the profiled repeat only.
 
 8. train   — single-card training, after the serving paths, with every
    launch counter zeroed before it and required to stay at zero (training
@@ -189,7 +209,8 @@ exit code:
    with ``--resume``; the losses of steps 4-6 within 1e-5 relative.
 
 Then the ``{"kernels": [...]}`` summary line (paged and flash attention at
-TinyLlama's hd 64, with recurrentgemma's hd 256 beside them; every kernel
+TinyLlama's hd 64, with recurrentgemma's hd 256 and, for flash,
+deepseek-v2-lite's q/k 192, v 128 beside them; every kernel
 with its long shape; launches summed over every full-width run of phases
 ``serve``, ``serve_modes``, ``sample_spec``, ``prefix_router`` and
 ``adapt``, and by run),
@@ -219,6 +240,10 @@ ARCH = "tinyllama-1.1b"
 SSM_ARCH = "mamba2-370m"
 RG_ARCH = "recurrentgemma-2b"
 MLP_ARCH = "paper-mlp"
+DS_ARCH = "deepseek-v2-lite-16b"
+# repro.models.config.ModelConfig.param_count() of DS_ARCH's config (the
+# port's ModelConfig has no param_count; its init tree is counted here)
+DS_REFERENCE_PARAM_COUNT = 15_759_554_560
 PLAN_DEVICES = 4        # modelled H100 SXM cards the serve plans are for
 PROMPT_LENS = (17, 200, 45, 131, 77, 163, 29, 111)
 MAX_NEW = 32
@@ -354,12 +379,35 @@ def paged_inputs(gen, dev, dtype, B, H, KV, hd, bs, max_blocks, lens):
     return q, kp, vp, tables, lens
 
 
-def flash_inputs(gen, dev, dtype, B, Sq, Skv, H, KV, hd):
+def flash_inputs(gen, dev, dtype, B, Sq, Skv, H, KV, hd, dv=None):
+    """q, k at head dim ``hd`` and v at ``dv`` (default ``hd``)."""
     import torch
     q = torch.randn((B, Sq, H, hd), generator=gen, device=dev).to(dtype)
     k = torch.randn((B, Skv, KV, hd), generator=gen, device=dev).to(dtype)
-    v = torch.randn((B, Skv, KV, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, Skv, KV, dv or hd), generator=gen,
+                    device=dev).to(dtype)
     return q, k, v
+
+
+def mla_dims(cfg) -> tuple:
+    """(H, KV, q/k head dim, v head dim) of ``cfg``'s prefill attention:
+    MLA expands its latents to ``qk_nope + qk_rope`` wide keys and
+    ``v_head_dim`` wide values on every head."""
+    if cfg.kv_lora_rank:
+        return (cfg.n_heads, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim,
+                cfg.v_head_dim)
+    return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim
+
+
+def attention_layers(cfg) -> tuple:
+    """(global or sliding-window attention layers, MLA layers) of
+    ``cfg``: the first launch the paged kernel per decode step and flash
+    per whole prefill (and per dense-lane decode step); MLA launches flash
+    per whole prefill only (its decode and chunk rows are plain absorbed
+    einsums over the latents)."""
+    mixers = [s.mixer for s in cfg.layers()]
+    return (sum(1 for m in mixers if m in ("global", "local")),
+            mixers.count("mla"))
 
 
 def ssd_inputs(gen, dev, dtype, B, S, nh, hd, ns):
@@ -436,6 +484,7 @@ def phase_kernels(dev) -> dict:
     """Each kernel against its plain version; returns the worst error per
     kernel at the main paths' full-width f32 shapes."""
     import torch
+    from repro_torch import configs
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -582,6 +631,52 @@ def phase_kernels(dev) -> dict:
                      "mlp_decode")):
                 main_err["flash_attention"] = max(
                     main_err["flash_attention"], err)
+    # deepseek-v2-lite's MLA prefill: H = KV = 16, q/k 192 (128 + 64 RoPE
+    # columns), v 128; the trace's prompts, the 64-row tile's edges, a long
+    # prompt, and inputs one element past an aligned address (the wrapper
+    # realigns them for the bf16 body's TMA)
+    H, KV, dqk, dv = mla_dims(configs.get(DS_ARCH))
+    mla_cases = [(f"mla_prefill_{S}", S, True, False)
+                 for S in (17, 131, 200, 2048)]
+    mla_cases += [(f"mla_tile_sq{S}_full", S, False, False)
+                  for S in (1, 63, 64, 65)]
+    mla_cases += [("mla_unaligned_131", 131, True, True)]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for name, S, causal, unaligned in mla_cases:
+            q, k, v = flash_inputs(gen, dev, dtype, 1, S, S, H, KV, dqk, dv)
+            if unaligned:
+                q, k, v = misaligned(q), misaligned(k), misaligned(v)
+            pos = torch.arange(S, dtype=torch.int32, device=dev)
+            got = fa_ops.flash_attention(q, k, v, q_positions=pos,
+                                         k_positions=pos, causal=causal)
+            torch.cuda.synchronize()
+            exp = fa_ref.reference(q, k, v, q_positions=pos,
+                                   k_positions=pos, causal=causal)
+            check(got.shape == exp.shape == (1, S, H, dv),
+                  f"{name}: output {tuple(got.shape)}")
+            err = (got.float() - exp.float()).abs().max().item()
+            tol = TOL[("flash", dname)]
+            rows.append({"kernel": "flash_attention", "case": name,
+                         "dtype": dname, "dqk": dqk, "dv": dv,
+                         "max_abs_err": err, "tol": tol, "ok": err < tol})
+            if dname == "float32" and name.startswith("mla_prefill"):
+                main_err["flash_attention"] = max(
+                    main_err["flash_attention"], err)
+    # every other split pair is refused on the card too
+    for bad_dqk, bad_dv in ((192, 64), (128, 192), (256, 128)):
+        q, k, v = flash_inputs(gen, dev, torch.bfloat16, 1, 8, 8, 2, 2,
+                               bad_dqk, bad_dv)
+        pos = torch.arange(8, dtype=torch.int32, device=dev)
+        try:
+            fa_ops.flash_attention(q, k, v, q_positions=pos, k_positions=pos)
+            refused = False
+        except ValueError:
+            refused = True
+        rows.append({"kernel": "flash_attention",
+                     "case": f"refuses_dqk{bad_dqk}_dv{bad_dv}",
+                     "dtype": "bfloat16", "refused": refused,
+                     "ok": refused})
     ssd_cases = [
         # name, B, S, nh, hd, ns, plain chunk (the JAX test's CASES first)
         ("jax_case0", 2, 128, 4, 16, 32, 32),
@@ -802,12 +897,38 @@ def plain_tokens(cfg, params, prompts, dev, dtype,
                            max_new)[0].tolist() for p in prompts]
 
 
+def router_gap(cfg, params, seq) -> float:
+    """The plain path's least gap, over the MoE layers, between the k-th and
+    the (k+1)-th router probability of the last row of ``seq`` (f32,
+    lossless, as the engines dispatch): how near that row's expert choice
+    was to a tie.  A diverging MoE request prints it beside its margin."""
+    from repro_torch.models import blocks, lm
+    k = cfg.experts_per_token
+    gaps = []
+    route = blocks.moe_route
+
+    def recording(cfg_, p, flat, **kw):
+        out = route(cfg_, p, flat, **kw)
+        top = out[0].reshape(-1, out[0].shape[-1])[-1].topk(k + 1).values
+        gaps.append((top[k - 1] - top[k]).item())
+        return out
+
+    blocks.moe_route = recording
+    try:
+        lm.forward(cfg, params, seq, mode="prefill", impl="plain",
+                   moe_lossless=True)
+    finally:
+        blocks.moe_route = route
+    return min(gaps)
+
+
 def hold_against_plain(cfg, params, prompts, results, refs, dev,
                        max_new=MAX_NEW) -> list:
     """Per request: the kernel engine's tokens against the plain B=1
     engine's (``refs``).  Identical, or at the first divergence the plain
     path's top-two logit margin must be under MARGIN (a near tie that
-    rounding may flip either way)."""
+    rounding may flip either way); an MoE model's row also gives the
+    plain path's least router gap there (``router_gap``)."""
     import torch
     from repro_torch.models import lm
     rows = []
@@ -821,10 +942,12 @@ def hold_against_plain(cfg, params, prompts, results, refs, dev,
         if div is not None:
             seq = torch.tensor([p + ref[:div]], device=dev)
             logits, _ = lm.forward(cfg, params, seq, mode="prefill",
-                                   impl="plain")
+                                   impl="plain", moe_lossless=True)
             top2 = logits[0, -1, :cfg.vocab_size].float().topk(2).values
             row["margin"] = (top2[0] - top2[1]).item()
             row["ok"] = row["margin"] < MARGIN
+            if cfg.n_experts:
+                row["router_gap"] = router_gap(cfg, params, seq)
         else:
             row["ok"] = True
         rows.append(row)
@@ -884,6 +1007,8 @@ def phase_serve(dev, arch: str, cache, label: str = "serve") -> dict:
 
     cfg = configs.get(arch)
     gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = lm.init_params(cfg, gen, dev, torch.float32)
     torch.cuda.synchronize()
@@ -902,18 +1027,22 @@ def phase_serve(dev, arch: str, cache, label: str = "serve") -> dict:
     check((eng.kv_len, eng.n_slots) == (KV_LEN, N_SLOTS),
           f"the plan sized the engine to {eng.kv_len} x {eng.n_slots}")
 
+    peak = torch.cuda.max_memory_allocated(dev)
     tel = eng.telemetry
     decode_steps = sum(1 for s in tel.steps if s.active_slots)
     prefills = sum(s.prefills for s in tel.steps)
     mixers = [s.mixer for s in cfg.layers()]
-    n_attn = sum(1 for m in mixers if m in ("global", "local"))
+    n_attn, n_mla = attention_layers(cfg)
     expect = {"paged_attention": n_attn * decode_steps,
-              "flash_attention": n_attn * prefills,
+              "flash_attention": (n_attn + n_mla) * prefills,
               "ssd_scan": mixers.count("ssd") * prefills,
               "rglru_scan": mixers.count("rglru") * prefills}
     refs = plain_tokens(cfg, params, prompts, dev, torch.float32)
     rows = hold_against_plain(cfg, params, prompts, results, refs, dev)
-    emit(label, arch=cfg.name, dtype="float32", params=n_params,
+    extra = ({"reference_param_count": DS_REFERENCE_PARAM_COUNT}
+             if arch == DS_ARCH else {})
+    emit(label, arch=cfg.name, dtype="float32", params=n_params, **extra,
+         layers=cfg.n_layers, peak_memory_bytes=peak,
          init_seconds=init_s, plan_key=plan.key,
          sized_by_plan={"kv_len": eng.kv_len, "n_slots": eng.n_slots},
          requests=rows, prefills=prefills,
@@ -984,9 +1113,10 @@ def expected_mode_launches(cfg, mode: dict, tel) -> dict:
     recurrent layer and chunk, no flash launch (the chunk's attention is
     the plain gather), paged launches from the decode steps only.  Dense
     lanes: flash per attention layer and prefill or lane decode step, no
-    paged launch, one scan launch per recurrent layer and prefill."""
+    paged launch, one scan launch per recurrent layer and prefill.  MLA
+    layers launch flash per whole prefill only."""
     mixers = [s.mixer for s in cfg.layers()]
-    n_attn = sum(1 for m in mixers if m in ("global", "local"))
+    n_attn, n_mla = attention_layers(cfg)
     chunks = sum(s.prefill_chunks for s in tel.steps)
     prefills = sum(s.prefills for s in tel.steps)
     decode_steps = sum(1 for s in tel.steps if s.active_slots)
@@ -997,7 +1127,8 @@ def expected_mode_launches(cfg, mode: dict, tel) -> dict:
                 "ssd_scan": mixers.count("ssd") * chunks,
                 "rglru_scan": mixers.count("rglru") * chunks}
     return {"paged_attention": 0,
-            "flash_attention": n_attn * (prefills + lane_steps),
+            "flash_attention": n_attn * (prefills + lane_steps)
+            + n_mla * prefills,
             "ssd_scan": mixers.count("ssd") * prefills,
             "rglru_scan": mixers.count("rglru") * prefills}
 
@@ -1103,7 +1234,8 @@ def sampled_margin(cfg, params, prompt, ref, div, seed, dev) -> float:
     from repro_torch.models import lm
     from repro_torch.serve import sampling
     seq = torch.tensor([prompt + ref[:div]], device=dev)
-    logits, _ = lm.forward(cfg, params, seq, mode="prefill", impl="plain")
+    logits, _ = lm.forward(cfg, params, seq, mode="prefill", impl="plain",
+                           moe_lossless=True)
     row = logits[0, -1, :cfg.vocab_size].float() / SAMPLED["temperature"]
     key = sampling.token_key(sampling.prng_key(seed, dev), len(prompt) + div)
     z = sampling.filter_logits(row, SAMPLED["top_k"], SAMPLED["top_p"]) + \
@@ -1256,12 +1388,13 @@ def expected_fleet_launches(cfg, counts: dict, chunked: bool) -> dict:
     prefill: flash per attention layer and prefill, each scan per
     recurrent layer and prefill; chunked prefill: no flash (a chunk's
     attention is the plain gather), each scan per recurrent layer and
-    chunk."""
+    chunk.  MLA layers count as attention layers for flash only."""
     mixers = [s.mixer for s in cfg.layers()]
-    n_attn = sum(1 for m in mixers if m in ("global", "local"))
+    n_attn, n_mla = attention_layers(cfg)
     units = counts["chunks"] if chunked else counts["prefills"]
     return {"paged_attention": n_attn * counts["decode_steps"],
-            "flash_attention": 0 if chunked else n_attn * counts["prefills"],
+            "flash_attention": (0 if chunked else
+                                (n_attn + n_mla) * counts["prefills"]),
             "ssd_scan": mixers.count("ssd") * units,
             "rglru_scan": mixers.count("rglru") * units}
 
@@ -1301,7 +1434,7 @@ def fleet_row(target, engines) -> dict:
     return row
 
 
-def phase_prefix_router(dev, served: dict) -> dict:
+def phase_prefix_router(dev, served: dict, only=None) -> dict:
     """The prefix cache and the multi-replica router at full width in f32,
     every run with the launch counters zeroed just before it and read just
     after, each request against the plain B=1 engine's tokens under the
@@ -1320,7 +1453,8 @@ def phase_prefix_router(dev, served: dict) -> dict:
     cache with the reference's reason, and a disaggregated router must
     degrade to two co-located replicas that serve phase serve's prompts.
     Every replica serves the one weight dict (peak memory under 1.5 x the
-    weights).  Returns {run: launches}."""
+    weights).  ``only`` names the runs to make (default all).  Returns
+    {run: launches}."""
     import torch
     from repro_torch.models import lm
     from repro_torch.serve import ContinuousEngine, Router
@@ -1364,6 +1498,8 @@ def phase_prefix_router(dev, served: dict) -> dict:
         arrivals = [i * STAGGER for i in range(len(trace))]
         runs = {"degraded": lambda: Router.build(
             cfg, params, n_replicas=2, disaggregate=True, paged=True, **kw)}
+    if only is not None:
+        runs = {name: runs[name] for name in only}
     out = {}
     for name, build in runs.items():
         target = build()
@@ -1732,6 +1868,20 @@ def profiled_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     raise RuntimeError("the profiler recorded no kernel in three sessions")
 
 
+def profiled_kernels(fn) -> list:
+    """The names of the device kernels one call of ``fn`` launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key[:80] for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA})
+
+
 def paged_timing(gen, dev, cfg, lens, max_blocks) -> dict:
     """The paged kernel in bf16 at ``cfg``'s heads and window, one decode
     step of lanes with contexts ``lens``, with the wrapper's own split."""
@@ -1778,9 +1928,9 @@ def flash_timing(gen, dev, cfg, S) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    H, KV, hd, dv = mla_dims(cfg)
     win = cfg.window_size
-    q, k, v = flash_inputs(gen, dev, torch.bfloat16, 1, S, S, H, KV, hd)
+    q, k, v = flash_inputs(gen, dev, torch.bfloat16, 1, S, S, H, KV, hd, dv)
     pos = torch.arange(S, dtype=torch.int32, device=dev)
     # visible (query, key) pairs only: causal, inside the window
     pairs = sum(min(i + 1, win) if win else i + 1 for i in range(S))
@@ -1798,19 +1948,25 @@ def flash_timing(gen, dev, cfg, S) -> dict:
     def library():
         return F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
 
+    out_numel = q.numel() // hd * dv
     row = {
         "shape": {"B": 1, "Sq": S, "Skv": S, "H": H, "KV": KV, "hd": hd,
-                  "causal": True, "window": win, "dtype": "bfloat16",
-                  "grid": [-(-S // 64), H], "tile": "64 query rows x 64 keys,"
-                  " one warpgroup"},
+                  "dv": dv, "causal": True, "window": win,
+                  "dtype": "bfloat16", "grid": [-(-S // 64), H],
+                  "tile": "64 query rows x 64 keys, one warpgroup"},
         "ms": time_ms(kernel),
         "device_ms": profiled_ms(kernel),
         "plain_ms": time_ms(lambda: fa_ref.reference(
             q, k, v, q_positions=pos, k_positions=pos, window=win)),
         "library_ms": time_ms(library),
         "library_device_ms": profiled_ms(library),
-        "bytes": 2 * (2 * q.numel() + k.numel() + v.numel()),
-        "flops": 4 * pairs * H * hd,
+        # the kernels SDPA ran: its backend (flash, memory-efficient,
+        # cuDNN or math) by name
+        "library_kernels": profiled_kernels(library),
+        # q, k, v and out once each in bf16, and the two position vectors
+        "bytes": 2 * (q.numel() + k.numel() + v.numel() + out_numel)
+        + 2 * 4 * S,
+        "flops": 2 * pairs * H * (hd + dv),
     }
     return set_bound(row)
 
@@ -1897,15 +2053,23 @@ def rglru_timing(gen, dev, cfg, S) -> dict:
 
 def phase_kernel_timing(dev) -> dict:
     """Both attention kernels at TinyLlama's and recurrentgemma's shapes
-    (``{arch: rows}``), and the scans at mamba2-370m's and
-    recurrentgemma-2b's (``{"scans": rows}``), each at the trace's 131-row
-    prompt and at a 2048-row one.  They run before any serve trace: the
-    profiler's short sessions lose their kernel records after the long
-    mamba2 trace has been profiled in the same process."""
+    (``{arch: rows}``), flash at deepseek-v2-lite's MLA prefill shape, and
+    the scans at mamba2-370m's and recurrentgemma-2b's (``{"scans":
+    rows}``), each at the trace's 131-row prompt and at a 2048-row one.
+    They run before any serve trace: the profiler's short sessions lose
+    their kernel records after the long mamba2 trace has been profiled in
+    the same process."""
     import torch
     from repro_torch import configs
     timing = {arch: attention_timing(dev, configs.get(arch), seed)
               for arch, seed in ((ARCH, 99), (RG_ARCH, 97))}
+    # MLA's prefill shape (H = KV = 16, q/k 192, v 128): flash only, since
+    # no kernel runs MLA's decode
+    gen = torch.Generator(device=dev).manual_seed(96)
+    ds = configs.get(DS_ARCH)
+    timing[DS_ARCH] = {
+        "flash_attention": flash_timing(gen, dev, ds, PROMPT_LENS[3]),
+        "flash_attention_long": flash_timing(gen, dev, ds, 2048)}
     gen = torch.Generator(device=dev).manual_seed(98)
     ssm, rg = configs.get(SSM_ARCH), configs.get(RG_ARCH)
     timing["scans"] = {
@@ -1956,6 +2120,62 @@ def phase_timing_rg(dev, served: dict) -> None:
     emit("timing", arch=cfg.name, dtype="bfloat16", serve=serve,
          launches_bf16={name: fn.launches
                         for name, fn in launch_counters().items()})
+
+
+def phase_timing_ds(dev, served: dict) -> None:
+    """deepseek-v2-lite's path: the bf16 trace at full depth and width.
+    The f32 weights (63 GB) are freed first and the bf16 ones made from
+    the same seed (the f32 draws rounded, as a cast would give: the two
+    do not fit on the card together).  Tokens/s, mean decode step and
+    prefill, peak memory, the launches of the timed run (flash per MLA
+    layer and prefill, nothing else), and a profiled repeat (device time
+    by kernel name, busy share, flash's device time per launch at q/k 192,
+    v 128)."""
+    import gc
+
+    import torch
+    from repro_torch.models import lm
+
+    cfg, prompts = served["cfg"], served["prompts"]
+    del served["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init_params(cfg, gen, dev, torch.bfloat16)
+    serve_trace(cfg, params, prompts[:2], dev, torch.bfloat16, 4)  # warm-up
+    torch.cuda.synchronize()
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng, results = serve_trace(cfg, params, prompts, dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    tel = eng.telemetry
+    n_tokens = sum(len(v) for v in results.values())
+    prefills = sum(s.prefills for s in tel.steps)
+    expect = {name: 0 for name in counters}
+    expect["flash_attention"] = attention_layers(cfg)[1] * prefills
+    serve = {"tokens": n_tokens, "wall_seconds": wall,
+             "tokens_per_s": n_tokens / wall,
+             "mean_decode_step_ms": tel.mean_decode_step_ms(),
+             "mean_prefill_ms": tel.mean_prefill_ms(),
+             "max_memory_allocated_bytes":
+                 torch.cuda.max_memory_allocated(dev),
+             "weight_bytes": sum(t.numel() * t.element_size()
+                                 for t in _leaves(params)),
+             "launches": launches, "expected_launches": expect}
+    del eng
+    serve["profile"] = profile_serve(cfg, params, prompts, dev, wall)
+    del params
+    emit("timing", arch=cfg.name, dtype="bfloat16", layers=cfg.n_layers,
+         serve=serve)
+    check(launches == expect,
+          f"bf16 launches {launches} != expected {expect}")
+    check("flash_attention" in serve["profile"]["port_kernels"],
+          "the profiled bf16 trace launched no flash kernel")
 
 
 def _value_and_grad(loss_fn, params, batch) -> tuple:
@@ -2236,6 +2456,7 @@ def main() -> int:
         phase_sampler(dev)
         t = done("sampler", t)
         timing, timing_rg = measured[ARCH], measured[RG_ARCH]
+        timing_ds = measured[DS_ARCH]
         timing.update(measured["scans"])
         # one path after the other, so that neither path's weights count
         # in the other's peak memory
@@ -2276,6 +2497,26 @@ def main() -> int:
             phase_adapt(served, cache)
             del served
             emit("adapt", arch=MLP_ARCH, seconds=time.perf_counter() - t0)
+            t = done("serve+adapt", t)
+            # deepseek-v2-lite: MLA with the MoE FFN, flash at q/k 192 and
+            # v 128; no sample_spec, and only run (a) of prefix_router (the
+            # CPU tests cover the rest for this arch)
+            phase = "serve"
+            served = phase_serve(dev, DS_ARCH, cache)
+            by_path[DS_ARCH] = served["launches"]
+            phase = "adapt"
+            phase_adapt(served, cache)
+            phase = "serve_modes"
+            for mode, counts in phase_serve_modes(dev, served).items():
+                by_path[f"{DS_ARCH}/{mode}"] = counts
+            phase = "prefix_router"
+            for run, counts in phase_prefix_router(
+                    dev, served, only=("whole",)).items():
+                by_path[f"{DS_ARCH}/prefix_router/{run}"] = counts
+            phase = "timing"
+            phase_timing_ds(dev, served)
+            del served
+            t = done(DS_ARCH, t)
         # each kernel's launches over the paths' runs, and by path
         launches = {name: sum(p[name] for p in by_path.values())
                     for name in launch_counters()}
@@ -2317,6 +2558,11 @@ def main() -> int:
             row["hd256"] = {k: timing_rg[name][k] for k in timed + device}
             row["long_hd256"] = {k: timing_rg[name + "_long"][k]
                                  for k in timed + device}
+        if name in timing_ds:        # flash at MLA's q/k 192, v 128
+            row["dqk192_dv128"] = {k: timing_ds[name][k]
+                                   for k in timed + device}
+            row["long_dqk192_dv128"] = {k: timing_ds[name + "_long"][k]
+                                        for k in timed + device}
         if name == "ssd_scan":       # the same work on the CUDA cores
             row["bound_ms_cuda_cores"] = timing[name]["bound_ms_cuda_cores"]
         summary.append(row)

@@ -7,11 +7,13 @@ from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig
 
-from . import mamba2_370m, paper_mlp, recurrentgemma_2b, tinyllama_1_1b
+from . import (deepseek_v2_lite_16b, mamba2_370m, paper_mlp,
+               recurrentgemma_2b, tinyllama_1_1b)
 
 _REGISTRY: dict[str, ModelConfig] = {
     mod.CONFIG.name: mod.CONFIG
-    for mod in (tinyllama_1_1b, mamba2_370m, recurrentgemma_2b, paper_mlp)}
+    for mod in (tinyllama_1_1b, mamba2_370m, recurrentgemma_2b, paper_mlp,
+                deepseek_v2_lite_16b)}
 
 
 def get(name: str) -> ModelConfig:

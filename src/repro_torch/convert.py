@@ -4,11 +4,11 @@
 arrays — ``repro.models.lm.init_params`` output after
 ``jax.tree.map(np.asarray, ...)`` — into the port's tree of tensors under
 the same keys.  Every leaf goes through float32 first: a bf16 leaf
-converts exactly, and a float32 leaf is unchanged.  The SSD and RG-LRU
-leaves that the reference keeps in float32 whatever the model's dtype
-(``A_log``, ``D``, ``dt_bias``, ``a_param``) stay float32.  This module
-imports neither JAX nor the JAX package; the caller does the numpy
-conversion.
+converts exactly, and a float32 leaf is unchanged.  The SSD, RG-LRU and
+MoE leaves that the reference keeps in float32 whatever the model's dtype
+(``A_log``, ``D``, ``dt_bias``, ``a_param``, ``router``) stay float32.
+This module imports neither JAX nor the JAX package; the caller does the
+numpy conversion.
 
 ``opt_state_from_numpy`` carries the reference's AdamW state across the
 same way: ``{"m", "v"}`` under the parameter keys and ``"step"``.
@@ -22,7 +22,7 @@ import torch
 from repro_torch.device import resolve_device
 
 # leaves the reference creates in float32 whatever the model's dtype
-F32_LEAVES = frozenset({"A_log", "D", "dt_bias", "a_param"})
+F32_LEAVES = frozenset({"A_log", "D", "dt_bias", "a_param", "router"})
 
 
 def _check_keys(cfg, tree: dict) -> None:

@@ -6,6 +6,8 @@ import torch
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64, 128, 256)
+# (q/k, v) head dims of flash attention where they differ: MLA's prefill
+SPLIT_HEAD_DIMS = ((192, 128),)
 
 
 def require(cond: bool, what: str, msg: str) -> None:

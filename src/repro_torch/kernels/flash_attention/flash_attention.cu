@@ -4,9 +4,13 @@
 //   src/repro/kernels/flash_attention/flash_attention.py:90 flash_attention_fwd
 //   (kernel body `_kernel`, :38).
 // Computes out[b, i, h] = softmax_j(mask(softcap(q[b, i, h] . k[b, j, h/G]
-// / sqrt(hd)))) v[b, j, h/G] with GQA (G = H / KV), masks taken from absolute
-// positions: k_pos[j] >= 0 (-1 marks an empty cache slot), causal
-// k_pos[j] <= q_pos[i], window k_pos[j] > q_pos[i] - window.
+// / sqrt(dqk)))) v[b, j, h/G] with GQA (G = H / KV), masks taken from
+// absolute positions: k_pos[j] >= 0 (-1 marks an empty cache slot), causal
+// k_pos[j] <= q_pos[i], window k_pos[j] > q_pos[i] - window.  Q and K rows
+// are dqk wide and V and out rows dv wide: dqk == dv in 16, 64, 128, 256,
+// or dqk 192 with dv 128 (multi-head latent attention's prefill: 128 + 64
+// RoPE columns of query and key, 128 of value).  Both bodies are templates
+// on <DQK, DV>.
 //
 // Bound on this card: a causal prefill of S rows does about 2 * S^2 * H * hd
 // flops (masked pairs excluded) on 4 * S * hd * (H + KV) bytes of bf16 q, k,
@@ -29,17 +33,19 @@
 //     of one head, zero-filled past Skv, completion on an mbarrier per
 //     stage), which the 128-byte swizzle of the tensor map lays out as
 //     `wgmma` reads it, and the other threads spend no instructions on
-//     addresses or copies;
+//     addresses or copies.  A row wider than 64 columns is a row of 64-
+//     column blocks, one box each: 3 for Q and K at dqk 192, 2 for V;
 //   * S = Q K^T is `wgmma.mma_async m64n64k16` with both operands in shared
-//     memory (K-major); the f32 accumulator fragment stays in registers,
+//     memory (K-major), dqk / 16 steps; the f32 accumulator fragment stays
+//     in registers,
 //     where the causal, window and k_pos == -1 masks, the softcap and the
 //     online softmax are applied (row max and sum over the quad of threads
 //     sharing a row, by shuffles; m and l in f32);
 //   * P = exp(s - m) is rounded to bf16 in registers and fed, without a trip
 //     through shared memory, as the register A operand of a second `wgmma`
 //     against V in shared memory (MN-major, one m64n64k16 per 64 columns of
-//     the head dim); the O accumulator is f32 in registers: 32 floats a
-//     thread per 64 columns, 128 at head dim 256;
+//     dv); the O accumulator is f32 in registers: 32 floats a thread per 64
+//     columns of dv, 128 at dv 256;
 //   * each CTA first finds the range of K tiles that any of its rows can see
 //     (from the positions) and walks only that range: tiles that the causal
 //     or window mask removes whole are neither loaded nor computed.  Ragged
@@ -52,7 +58,7 @@
 //   bar of 2e-5, so f32 keeps full-precision FMAs: Q, K, V and the score
 //   tile in shared memory as f32 (K padded by one column so a warp reading
 //   32 key rows hits 32 banks), m and l in shared memory, the accumulator in
-//   registers; 64-row tiles up to head dim 128 and 32 rows at 256.
+//   registers; 64-row tiles up to dqk 128 and 32 rows above.
 //
 // Arithmetic follows the Pallas kernel in both bodies: f32 scores, running
 // max and sum; exp(s - m) rounded to the input type before the product with
@@ -80,25 +86,25 @@ __device__ __forceinline__ bool visible(int qp, int kp, int causal,
 // ---------------------------------------------------------------------------
 
 // Query rows per CTA and key rows per iteration.
-template <int HD>
+template <int DQK>
 struct Tile {
-  static constexpr int kBQ = HD <= 128 ? 64 : 32;
+  static constexpr int kBQ = DQK <= 128 ? 64 : 32;
   static constexpr int kBK = kBQ;
 };
 
-// Shared memory: q [BQ][HD], k [BK][HD+1], v [BK][HD], s [BQ][BK+1] and
+// Shared memory: q [BQ][DQK], k [BK][DQK+1], v [BK][DV], s [BQ][BK+1] and
 // m, l, alpha [BQ] as floats, then the q and k positions as ints.
-template <int HD>
+template <int DQK, int DV>
 constexpr size_t smem_bytes() {
-  constexpr int kBQ = Tile<HD>::kBQ;
-  constexpr int kBK = Tile<HD>::kBK;
-  return sizeof(float) * (size_t(kBQ) * HD + size_t(kBK) * (HD + 1) +
-                          size_t(kBK) * HD + size_t(kBQ) * (kBK + 1) +
+  constexpr int kBQ = Tile<DQK>::kBQ;
+  constexpr int kBK = Tile<DQK>::kBK;
+  return sizeof(float) * (size_t(kBQ) * DQK + size_t(kBK) * (DQK + 1) +
+                          size_t(kBK) * DV + size_t(kBQ) * (kBK + 1) +
                           3 * size_t(kBQ)) +
          sizeof(int) * (kBQ + kBK);
 }
 
-template <int HD>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
@@ -108,15 +114,15 @@ flash_attention_f32_kernel(const float* __restrict__ q,
                            float* __restrict__ out, int Sq, int Skv, int H,
                            int KV, float scale, int causal, int window,
                            float softcap) {
-  constexpr int kBQ = Tile<HD>::kBQ;
-  constexpr int kBK = Tile<HD>::kBK;
-  // kColThreads threads share a row: the thread owning columns d_own +
-  // j * kColThreads (j < kCols) handles rows r0, r0 + kRowStep, ...
-  constexpr int kColThreads = HD < kThreads ? HD : kThreads;
-  constexpr int kCols = HD / kColThreads;
+  constexpr int kBQ = Tile<DQK>::kBQ;
+  constexpr int kBK = Tile<DQK>::kBK;
+  // kColThreads threads share a row of out: the thread owning columns
+  // d_own + j * kColThreads (j < kCols) handles rows r0, r0 + kRowStep, ...
+  constexpr int kColThreads = DV < kThreads ? DV : kThreads;
+  constexpr int kCols = DV / kColThreads;
   constexpr int kRowStep = kThreads / kColThreads;
   constexpr int kAcc = kBQ / kRowStep;
-  static_assert(kThreads % kColThreads == 0 && HD % kColThreads == 0 &&
+  static_assert(kThreads % kColThreads == 0 && DV % kColThreads == 0 &&
                     kBQ % kRowStep == 0,
                 "head dim and block must tile each other");
 
@@ -132,19 +138,19 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 
   extern __shared__ float smem[];
   float* q_s = smem;
-  float* k_s = q_s + kBQ * HD;
-  float* v_s = k_s + kBK * (HD + 1);
-  float* s_s = v_s + kBK * HD;
+  float* k_s = q_s + kBQ * DQK;
+  float* v_s = k_s + kBK * (DQK + 1);
+  float* s_s = v_s + kBK * DV;
   float* m_s = s_s + kBQ * (kBK + 1);
   float* l_s = m_s + kBQ;
   float* a_s = l_s + kBQ;
   int* qp_s = reinterpret_cast<int*>(a_s + kBQ);
   int* kp_s = qp_s + kBQ;
 
-  for (int e = tid; e < kBQ * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
+  for (int e = tid; e < kBQ * DQK; e += kThreads) {
+    const int r = e / DQK, d = e % DQK;
     const int i = q0 + r;
-    q_s[e] = i < Sq ? q[((size_t(b) * Sq + i) * H + h) * HD + d] : 0.f;
+    q_s[e] = i < Sq ? q[((size_t(b) * Sq + i) * H + h) * DQK + d] : 0.f;
   }
   for (int r = tid; r < kBQ; r += kThreads) {
     // rows past Sq are computed against position 0 and never stored
@@ -160,17 +166,16 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 
   for (int k0 = 0; k0 < Skv; k0 += kBK) {
     __syncthreads();  // previous tile fully consumed (and q staged)
-    for (int e = tid; e < kBK * HD; e += kThreads) {
-      const int c = e / HD, d = e % HD;
+    for (int e = tid; e < kBK * DQK; e += kThreads) {
+      const int c = e / DQK, d = e % DQK;
       const int j = k0 + c;
-      float kx = 0.f, vx = 0.f;
-      if (j < Skv) {
-        const size_t row = ((size_t(b) * Skv + j) * KV + kvh) * HD;
-        kx = k[row + d];
-        vx = v[row + d];
-      }
-      k_s[c * (HD + 1) + d] = kx;
-      v_s[c * HD + d] = vx;
+      k_s[c * (DQK + 1) + d] =
+          j < Skv ? k[((size_t(b) * Skv + j) * KV + kvh) * DQK + d] : 0.f;
+    }
+    for (int e = tid; e < kBK * DV; e += kThreads) {
+      const int c = e / DV, d = e % DV;
+      const int j = k0 + c;
+      v_s[e] = j < Skv ? v[((size_t(b) * Skv + j) * KV + kvh) * DV + d] : 0.f;
     }
     for (int c = tid; c < kBK; c += kThreads)
       kp_s[c] = k0 + c < Skv ? k_pos[k0 + c] : -1;
@@ -181,11 +186,11 @@ flash_attention_f32_kernel(const float* __restrict__ q,
       const int r = e / kBK, c = e % kBK;
       float s = kNegInf;
       if (visible(qp_s[r], kp_s[c], causal, window)) {
-        const float* qr = q_s + r * HD;
-        const float* kr = k_s + c * (HD + 1);
+        const float* qr = q_s + r * DQK;
+        const float* kr = k_s + c * (DQK + 1);
         float dot = 0.f;
 #pragma unroll 16
-        for (int d = 0; d < HD; ++d) dot = fmaf(qr[d], kr[d], dot);
+        for (int d = 0; d < DQK; ++d) dot = fmaf(qr[d], kr[d], dot);
         s = dot * scale;
         if (softcap > 0.f) s = softcap * tanhf(s / softcap);
       }
@@ -235,7 +240,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
         const int d = d_own + j * kColThreads;
         float sum = 0.f;
 #pragma unroll 8
-        for (int c = 0; c < kBK; ++c) sum = fmaf(prow[c], v_s[c * HD + d], sum);
+        for (int c = 0; c < kBK; ++c) sum = fmaf(prow[c], v_s[c * DV + d], sum);
         acc[i][j] = a_s[r] * acc[i][j] + sum;
       }
     }
@@ -249,25 +254,25 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     if (qi < Sq) {
 #pragma unroll
       for (int j = 0; j < kCols; ++j)
-        out[((size_t(b) * Sq + qi) * H + h) * HD + d_own + j * kColThreads] =
+        out[((size_t(b) * Sq + qi) * H + h) * DV + d_own + j * kColThreads] =
             acc[i][j] / fmaxf(l_s[r], 1e-30f);
     }
   }
 }
 
-template <int HD>
+template <int DQK, int DV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const void* q_pos, const void* k_pos, void* out, int B,
                        int Sq, int Skv, int H, int KV, float scale, int causal,
                        int window, float softcap, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  auto kernel = flash_attention_f32_kernel<HD>;
+  constexpr size_t smem = smem_bytes<DQK, DV>();
+  auto kernel = flash_attention_f32_kernel<DQK, DV>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return err;
   }
-  constexpr int kBQ = Tile<HD>::kBQ;
+  constexpr int kBQ = Tile<DQK>::kBQ;
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -286,16 +291,24 @@ constexpr int kLineBytes = 128;    // one swizzled row: 64 bf16
 constexpr int kBlockBytes = kTcRows * kLineBytes;  // 64 rows x 64 columns
 constexpr float kLog2e = 1.4426950408889634f;
 
+// 64-column blocks of a row of `HD` columns (padded to one block)
 template <int HD>
-struct TcTile {
-  static constexpr int kCols = HD < 64 ? 64 : HD;      // padded row width
-  static constexpr int kBlocks = kCols / 64;           // 64-column blocks
+struct TcRow {
+  static constexpr int kBlocks = (HD < 64 ? 64 : HD) / 64;
   static constexpr int kTileBytes = kBlocks * kBlockBytes;
-  static constexpr int kKSteps = HD / 16;              // k16 steps of Q K^T
+};
+
+template <int DQK, int DV>
+struct TcTile {
+  static constexpr int kBlocksQK = TcRow<DQK>::kBlocks;  // of a q or k row
+  static constexpr int kBlocksV = TcRow<DV>::kBlocks;    // of a v or out row
+  static constexpr int kTileQK = TcRow<DQK>::kTileBytes;
+  static constexpr int kTileV = TcRow<DV>::kTileBytes;
+  static constexpr int kKSteps = DQK / 16;               // k16 steps of Q K^T
   // q tile, two stages of k and v, two stages of k positions, the tile
   // range, three mbarriers (q, and k/v of each stage), and slack to align
   // the tiles to the 1024-byte swizzle atom
-  static constexpr size_t kSmem = size_t(5) * kTileBytes +
+  static constexpr size_t kSmem = size_t(3) * kTileQK + size_t(2) * kTileV +
                                   2 * kTcRows * sizeof(int) +
                                   4 * sizeof(int) + 3 * 8 + 1024;
 };
@@ -428,7 +441,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int HD>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap k_map,
@@ -438,8 +451,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                              __nv_bfloat16* __restrict__ out, int Sq, int Skv,
                              int H, int KV, float scale, int causal,
                              int window, float softcap) {
-  using TT = TcTile<HD>;
-  constexpr int kBlocks = TT::kBlocks;
+  using TT = TcTile<DQK, DV>;
+  constexpr int kBlocksQK = TT::kBlocksQK;
+  constexpr int kBlocksV = TT::kBlocksV;
   // the heaviest causal tiles (the last rows) start first
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcRows;
   const int b = blockIdx.y / H;
@@ -455,27 +469,29 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const uint32_t raw = uint32_t(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - raw);
+  constexpr int kTilesBytes = 3 * TT::kTileQK + 2 * TT::kTileV;
   const uint32_t q_tile = base;
-  const uint32_t k_tile[2] = {base + TT::kTileBytes, base + 2 * TT::kTileBytes};
-  const uint32_t v_tile[2] = {base + 3 * TT::kTileBytes,
-                              base + 4 * TT::kTileBytes};
-  int* kp_s = reinterpret_cast<int*>(smem + 5 * TT::kTileBytes);  // [2][64]
+  const uint32_t k_tile[2] = {base + TT::kTileQK, base + 2 * TT::kTileQK};
+  const uint32_t v_tile[2] = {base + 3 * TT::kTileQK,
+                              base + 3 * TT::kTileQK + TT::kTileV};
+  int* kp_s = reinterpret_cast<int*>(smem + kTilesBytes);  // [2][64]
   int* range_s = kp_s + 2 * kTcRows;  // qmin, qmax, first tile, last tile
   // mbarriers: the q tile, then k/v of stage 0 and of stage 1
-  const uint32_t bar_q = base + 5 * TT::kTileBytes + 2 * kTcRows * 4 + 16;
+  const uint32_t bar_q = base + kTilesBytes + 2 * kTcRows * 4 + 16;
   const uint32_t bar_kv[2] = {bar_q + 8, bar_q + 16};
 
   // K and V rows of tile t into a stage, and their positions
   auto load_kv = [&](int stage, int t) {
     if (tid == 0) {
-      mbar_expect(bar_kv[stage], 2 * TT::kTileBytes);
+      mbar_expect(bar_kv[stage], TT::kTileQK + TT::kTileV);
 #pragma unroll
-      for (int nb = 0; nb < kBlocks; ++nb) {
+      for (int nb = 0; nb < kBlocksQK; ++nb)
         tma_load(k_tile[stage] + nb * kBlockBytes, &k_map, bar_kv[stage],
                  nb * 64, kvh, t * kTcRows, b);
+#pragma unroll
+      for (int nb = 0; nb < kBlocksV; ++nb)
         tma_load(v_tile[stage] + nb * kBlockBytes, &v_map, bar_kv[stage],
                  nb * 64, kvh, t * kTcRows, b);
-      }
     }
     if (tid < kTcRows) {
       const int j = t * kTcRows + tid;
@@ -491,9 +507,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_init(bar_kv[0]);
     mbar_init(bar_kv[1]);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect(bar_q, TT::kTileBytes);
+    mbar_expect(bar_q, TT::kTileQK);
 #pragma unroll
-    for (int nb = 0; nb < kBlocks; ++nb)
+    for (int nb = 0; nb < kBlocksQK; ++nb)
       tma_load(q_tile + nb * kBlockBytes, &q_map, bar_q, nb * 64, h, q0, b);
     range_s[0] = INT32_MAX;
     range_s[1] = INT32_MIN;
@@ -541,9 +557,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   cp_async_commit();
   mbar_wait(bar_q, 0);
 
-  float o[kBlocks][32];
+  float o[kBlocksV][32];
 #pragma unroll
-  for (int nb = 0; nb < kBlocks; ++nb)
+  for (int nb = 0; nb < kBlocksV; ++nb)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[nb][i] = 0.f;
   // m is kept in the units of the scores as the loop sees them: softcapped
@@ -641,26 +657,26 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + sum[r];
     if (alpha[0] != 1.f || alpha[1] != 1.f) {
 #pragma unroll
-      for (int nb = 0; nb < kBlocks; ++nb)
+      for (int nb = 0; nb < kBlocksV; ++nb)
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[nb][i] *= alpha[(i >> 1) & 1];
     }
 
     // O += P V on the tensor cores
 #pragma unroll
-    for (int nb = 0; nb < kBlocks; ++nb) fence_regs(o[nb]);
+    for (int nb = 0; nb < kBlocksV; ++nb) fence_regs(o[nb]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int nb = 0; nb < kBlocks; ++nb)
+      for (int nb = 0; nb < kBlocksV; ++nb)
         wgmma_rs(o[nb], p + 4 * kk,
                  sw128_desc(v_tile[stage] + nb * kBlockBytes +
                             kk * 16 * kLineBytes));
     wgmma_commit();
     wgmma_wait();
 #pragma unroll
-    for (int nb = 0; nb < kBlocks; ++nb) fence_regs(o[nb]);
+    for (int nb = 0; nb < kBlocksV; ++nb) fence_regs(o[nb]);
     fence_regs(p);
   }
   cp_async_wait<0>();
@@ -675,13 +691,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int r = 0; r < 2; ++r) {
     const int qi = q0 + row0 + 8 * r;
     if (qi >= Sq) continue;
-    __nv_bfloat16* orow = out + ((size_t(b) * Sq + qi) * H + h) * HD;
+    __nv_bfloat16* orow = out + ((size_t(b) * Sq + qi) * H + h) * DV;
 #pragma unroll
-    for (int nb = 0; nb < kBlocks; ++nb)
+    for (int nb = 0; nb < kBlocksV; ++nb)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = nb * 64 + 8 * j + 2 * t4;
-        if (c < HD)
+        if (c < DV)
           *reinterpret_cast<__nv_bfloat162*>(orow + c) =
               __floats2bfloat162_rn(o[nb][4 * j + 2 * r] * l[r],
                                     o[nb][4 * j + 2 * r + 1] * l[r]);
@@ -732,19 +748,19 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int B, int rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int DQK, int DV>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const void* q_pos, const void* k_pos, void* out,
                         int B, int Sq, int Skv, int H, int KV, float scale,
                         int causal, int window, float softcap,
                         cudaStream_t stream) {
   CUtensorMap maps[3];
-  if (!(tensor_map(&maps[0], q, B, Sq, H, HD) &&
-        tensor_map(&maps[1], k, B, Skv, KV, HD) &&
-        tensor_map(&maps[2], v, B, Skv, KV, HD)))
+  if (!(tensor_map(&maps[0], q, B, Sq, H, DQK) &&
+        tensor_map(&maps[1], k, B, Skv, KV, DQK) &&
+        tensor_map(&maps[2], v, B, Skv, KV, DV)))
     return cudaErrorInvalidValue;
-  constexpr size_t smem = TcTile<HD>::kSmem;
-  auto kernel = flash_attention_wgmma_kernel<HD>;
+  constexpr size_t smem = TcTile<DQK, DV>::kSmem;
+  auto kernel = flash_attention_wgmma_kernel<DQK, DV>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -762,24 +778,31 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   q, k, v, q_pos, k_pos, out, B, Sq, Skv, H, KV, scale, causal, window, \
       softcap, stream
 
-cudaError_t dispatch(int hd, int dtype, const void* q, const void* k,
-                     const void* v, const void* q_pos, const void* k_pos,
-                     void* out, int B, int Sq, int Skv, int H, int KV,
-                     float scale, int causal, int window, float softcap,
-                     cudaStream_t stream) {
+cudaError_t dispatch(int hd, int dv, int dtype, const void* q,
+                     const void* k, const void* v, const void* q_pos,
+                     const void* k_pos, void* out, int B, int Sq, int Skv,
+                     int H, int KV, float scale, int causal, int window,
+                     float softcap, cudaStream_t stream) {
+  if (dv != hd) {
+    if (hd == 192 && dv == 128) {
+      if (dtype == 0) return launch_f32<192, 128>(FLASH_ARGS);
+      if (dtype == 1) return launch_bf16<192, 128>(FLASH_ARGS);
+    }
+    return cudaErrorInvalidValue;
+  }
   if (dtype == 0) {
     switch (hd) {
-      case 16: return launch_f32<16>(FLASH_ARGS);
-      case 64: return launch_f32<64>(FLASH_ARGS);
-      case 128: return launch_f32<128>(FLASH_ARGS);
-      case 256: return launch_f32<256>(FLASH_ARGS);
+      case 16: return launch_f32<16, 16>(FLASH_ARGS);
+      case 64: return launch_f32<64, 64>(FLASH_ARGS);
+      case 128: return launch_f32<128, 128>(FLASH_ARGS);
+      case 256: return launch_f32<256, 256>(FLASH_ARGS);
     }
   } else if (dtype == 1) {
     switch (hd) {
-      case 16: return launch_bf16<16>(FLASH_ARGS);
-      case 64: return launch_bf16<64>(FLASH_ARGS);
-      case 128: return launch_bf16<128>(FLASH_ARGS);
-      case 256: return launch_bf16<256>(FLASH_ARGS);
+      case 16: return launch_bf16<16, 16>(FLASH_ARGS);
+      case 64: return launch_bf16<64, 64>(FLASH_ARGS);
+      case 128: return launch_bf16<128, 128>(FLASH_ARGS);
+      case 256: return launch_bf16<256, 256>(FLASH_ARGS);
     }
   }
   return cudaErrorInvalidValue;
@@ -787,19 +810,21 @@ cudaError_t dispatch(int hd, int dtype, const void* q, const void* k,
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA-core body), 1 = bfloat16 (wgmma body).  Returns
-// the cudaError_t of the launch.
+// hd: the q/k head dim; dv: the v/out head dim.  dtype: 0 = float32
+// (CUDA-core body), 1 = bfloat16 (wgmma body).  Returns the cudaError_t of
+// the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, const void* q_pos,
                                       const void* k_pos, void* out, int B,
                                       int Sq, int Skv, int H, int KV, int hd,
-                                      float scale, int causal, int window,
-                                      float softcap, int dtype, void* stream) {
+                                      int dv, float scale, int causal,
+                                      int window, float softcap, int dtype,
+                                      void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || H % KV != 0 ||
       B * H > 65535)
     return int(cudaErrorInvalidValue);
-  return int(dispatch(hd, dtype, q, k, v, q_pos, k_pos, out, B, Sq, Skv, H,
-                      KV, scale, causal, window, softcap,
+  return int(dispatch(hd, dv, dtype, q, k, v, q_pos, k_pos, out, B, Sq, Skv,
+                      H, KV, scale, causal, window, softcap,
                       static_cast<cudaStream_t>(stream)));
 }
 

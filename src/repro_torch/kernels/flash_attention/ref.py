@@ -3,7 +3,9 @@
 
 GQA, position-based causal and sliding-window masks, optional logit
 softcap; scores and softmax in f32, probabilities rounded to the input
-type before the product with V (as the reference does).
+type before the product with V (as the reference does).  V's head dim may
+differ from Q's; the scale is ``1/sqrt`` of Q's and the output follows
+V's.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ NEG_INF = -1e30
 
 def reference(q, k, v, *, q_positions, k_positions, causal=True, window=0,
               logit_softcap=0.0):
-    """q: [B, Sq, H, hd]; k, v: [B, Skv, KV, hd] -> [B, Sq, H, hd]."""
+    """q: [B, Sq, H, hd]; k: [B, Skv, KV, hd]; v: [B, Skv, KV, dv] ->
+    [B, Sq, H, dv]."""
     H, hd = q.shape[2], q.shape[3]
     n_kv = k.shape[2]
     if n_kv != H:

@@ -1,7 +1,8 @@
 """Serving launcher of the port: static batch, or continuous batching over
 dense per-slot lanes or the paged KV cache (window block rings for
-sliding-window layers, and per-lane recurrent state slabs for mamba2's and
-recurrentgemma's recurrent layers), with whole, bucketed (``--bucket``) or
+sliding-window layers, per-lane recurrent state slabs for mamba2's and
+recurrentgemma's recurrent layers, and latent pools for deepseek-v2-lite's
+multi-head latent attention), with whole, bucketed (``--bucket``) or
 chunked (``--chunk-prefill C``, paged only) prefill, per-request sampling
 (``--temperature``, ``--top-k``, ``--top-p``; request i samples with seed
 ``--sample-seed + i``), self-speculative decoding (``--speculate K``,
@@ -24,6 +25,8 @@ Usage (on the CUDA card; ``--device cpu`` runs the plain versions):
         --continuous --paged
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-2b --continuous --paged
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b --continuous --paged
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --continuous --paged --adapt --devices 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
@@ -43,6 +46,9 @@ Usage (on the CUDA card; ``--device cpu`` runs the plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-2b --reduced --continuous --paged \
         --prompt-len 40 --kv-len 96 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b --reduced --continuous --paged \
+        --prefix-cache --shared-prefix 16 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-mlp \
         --reduced --continuous --paged --adapt --devices 4 --device cpu
 

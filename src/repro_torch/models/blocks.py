@@ -1,8 +1,8 @@
-"""Model blocks of the dense decoder: RMSNorm, RoPE, GQA attention (global
-or sliding-window) over no cache, a dense cache or a paged block pool, and
-the gated FFN.
+"""Model blocks: RMSNorm, RoPE, GQA attention (global or sliding-window)
+over no cache, a dense cache or a paged block pool, the gated FFN and the
+capacity-bounded mixture-of-experts FFN.
 
-A port of ``repro.models.blocks`` (the attention and dense-FFN subset).
+A port of ``repro.models.blocks`` (the attention, FFN and MoE subset).
 Parameters are plain dicts of tensors under the reference's keys.  Attention
 has two implementations, chosen by ``impl``:
 
@@ -44,7 +44,8 @@ def dense_init(gen: torch.Generator, shape: tuple, dtype,
                device) -> torch.Tensor:
     """Normal / sqrt(d_in) weights of ``shape`` (..., d_in, d_out)."""
     w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return (w * (1.0 / math.sqrt(shape[-2]))).to(dtype)
+    # in place: a full-width expert stack is tens of GB in f32
+    return w.mul_(1.0 / math.sqrt(shape[-2])).to(dtype)
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -132,8 +133,10 @@ def attention(q, k, v, *, q_positions, k_positions, causal: bool = True,
               impl: str = "kernel") -> torch.Tensor:
     """Softmax attention with GQA, optional sliding window and softcap.
 
-    q: [B, Sq, H, hd]; k, v: [B, Skv, KV, hd]; positions are absolute int32.
-    """
+    q: [B, Sq, H, hd]; k: [B, Skv, KV, hd]; v: [B, Skv, KV, dv]; positions
+    are absolute int32.  Returns [B, Sq, H, dv]: the output head dim
+    follows V's, which MLA sets apart from Q's (the kernel takes dv != hd
+    only for hd 192 with dv 128, and raises on any other such pair)."""
     if impl == "kernel":
         return fa_ops.flash_attention(
             q, k, v, q_positions=q_positions, k_positions=k_positions,
@@ -346,12 +349,12 @@ def _prefill_cache(cache: dict, k, v, positions, window: int = 0,
 
 
 # =============================================================================
-# FFN (SwiGLU / GeGLU)
+# FFN (SwiGLU / GeGLU) and MoE
 # =============================================================================
 
 def init_ffn(gen: torch.Generator, cfg: ModelConfig, repeats: int, dtype,
-             device) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+             device, d_ff: Optional[int] = None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     return {
         "ln": torch.zeros((repeats, d), dtype=dtype, device=device),
         "w_gate": dense_init(gen, (repeats, d, f), dtype, device),
@@ -371,3 +374,106 @@ def ffn_layer(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     act = _act_fn(cfg.ffn_act)
     out = (act(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
     return x + out
+
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, repeats: int, dtype,
+             device) -> dict:
+    """Routed experts ``[repeats, E, D, F]`` / ``[repeats, E, F, D]``, the
+    router ``[repeats, D, E]`` in f32 whatever ``dtype`` (the reference
+    keeps it so), and the shared experts as one gated FFN of width
+    ``n_shared_experts * d_ff_expert`` without a norm of its own (it reads
+    the MoE's pre-norm)."""
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+    p = {
+        "ln": torch.zeros((repeats, d), dtype=dtype, device=device),
+        "router": dense_init(gen, (repeats, d, E), torch.float32, device),
+        "w_gate": dense_init(gen, (repeats, E, d, f), dtype, device),
+        "w_up": dense_init(gen, (repeats, E, d, f), dtype, device),
+        "w_down": dense_init(gen, (repeats, E, f, d), dtype, device),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = init_ffn(gen, cfg, repeats, dtype, device,
+                               d_ff=cfg.n_shared_experts * cfg.d_ff_expert)
+        del p["shared"]["ln"]
+    return p
+
+
+def moe_route(cfg: ModelConfig, p: dict, flat: torch.Tensor, *,
+              capacity_factor: float, lossless: bool) -> tuple:
+    """Routing of ``moe_layer`` over the pre-normed tokens ``flat`` [G, Tg,
+    D]: returns (probs [G, Tg, E] f32, renormalised gates [G, Tg, k], expert
+    ids [G, Tg, k], each slot's position within its expert [G, Tg, k],
+    keep [G, Tg, k], capacity).  Positions count the expert's earlier
+    slots in token-major order, so the capacity keeps the first arrivals
+    (which slots drop decides tokens: ``torch.topk`` sorts the k choices
+    as ``lax.top_k`` does)."""
+    G, Tg, _ = flat.shape
+    E, topk = cfg.n_experts, cfg.experts_per_token
+    logits = flat.float() @ p["router"]                      # [G, Tg, E]
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, topk, dim=-1, sorted=True)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
+    capacity = (Tg * topk if lossless
+                else max(1, int(Tg * topk * capacity_factor / E)))
+    flat_oh = F.one_hot(gate_idx, E).reshape(G, Tg * topk, E)
+    pos_in_e = (flat_oh.cumsum(dim=1) - flat_oh).reshape(G, Tg, topk, E)
+    pos = pos_in_e.gather(-1, gate_idx[..., None])[..., 0]   # [G, Tg, k]
+    return probs, gate_vals, gate_idx, pos, pos < capacity, capacity
+
+
+def moe_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+              capacity_factor: float = 1.25, n_groups: int = 1,
+              lossless: bool = False) -> tuple:
+    """Capacity-bounded top-k MoE with the reference's grouped dispatch;
+    returns (residual output, router aux loss).
+
+    The ``B * S`` tokens split into ``n_groups`` dispatch groups (one when
+    the count does not divide).  Per group: f32 router softmax, top-k with
+    the gates renormalised, each (token, slot) placed at its exclusive
+    cumsum position within its expert in token-major order, and kept when
+    that position is under the capacity ``max(1, int(Tg * k * cf / E))``
+    (``Tg * k`` when ``lossless``: nothing drops).  Kept rows scatter into
+    ``[G, E, C, D]`` (dropped ones into a sentinel row), every expert runs
+    its gated FFN over its C rows, and the rows gather back weighted by
+    their gates.  The shared experts read the same pre-norm.  The aux loss
+    is the Switch load-balancing term over the top-1 choices, times
+    ``router_aux_coef``."""
+    B, S, D = x.shape
+    E, topk = cfg.n_experts, cfg.experts_per_token
+    T = B * S
+    G = n_groups if T % n_groups == 0 else 1
+    Tg = T // G
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    flat = h.reshape(G, Tg, D)
+    probs, gate_vals, gate_idx, pos, keep, capacity = moe_route(
+        cfg, p, flat, capacity_factor=capacity_factor, lossless=lossless)
+
+    density = F.one_hot(gate_idx[..., 0], E).float().mean(dim=(0, 1))
+    mean_prob = probs.mean(dim=(0, 1))
+    aux = E * torch.sum(density * mean_prob) * cfg.router_aux_coef
+
+    dest = torch.where(keep, gate_idx * capacity + pos, E * capacity)
+    dest = dest.reshape(G, Tg * topk)
+    src = flat[:, :, None, :].expand(G, Tg, topk, D).reshape(G, Tg * topk, D)
+    dispatched = flat.new_zeros((G, E * capacity + 1, D))
+    dispatched.scatter_(1, dest[..., None].expand(-1, -1, D), src)
+    dispatched = dispatched[:, :-1].reshape(G, E, capacity, D)
+
+    act = _act_fn(cfg.ffn_act)
+    hidden = act(torch.einsum("gecd,edf->gecf", dispatched, p["w_gate"])) * \
+        torch.einsum("gecd,edf->gecf", dispatched, p["w_up"])
+    expert_out = torch.einsum("gecf,efd->gecd", hidden, p["w_down"])
+
+    flat_out = torch.cat([expert_out.reshape(G, E * capacity, D),
+                          expert_out.new_zeros((G, 1, D))], dim=1)
+    gathered = flat_out.gather(1, dest[..., None].expand(-1, -1, D)) \
+        .reshape(G, Tg, topk, D)
+    weights = gate_vals.to(flat.dtype) * keep.to(flat.dtype)
+    combined = torch.einsum("gtkd,gtk->gtd", gathered, weights)
+
+    out = combined.reshape(B, S, D)
+    if "shared" in p:
+        sh = p["shared"]
+        out = out + (act(h @ sh["w_gate"]) * (h @ sh["w_up"])) @ sh["w_down"]
+    return x + out, aux

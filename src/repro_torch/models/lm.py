@@ -1,12 +1,14 @@
 """Model assembly for decoder-only archs built of global- or
-sliding-window-attention layers with a dense FFN, Mamba-2 SSD layers and
-RG-LRU layers with a dense FFN: parameter init, caches (dense, per-slot
-dense lanes and paged) and ``forward`` in prefill, chunk-prefill, decode
-and train modes, with ``layer_cap`` for the truncated draft pass of
+sliding-window-attention layers with a dense FFN, Mamba-2 SSD layers,
+RG-LRU layers with a dense FFN and multi-head latent attention layers with
+a dense or a mixture-of-experts FFN: parameter init, caches (dense,
+per-slot dense lanes and paged) and ``forward`` in prefill, chunk-prefill,
+decode and train modes, with ``layer_cap`` for the truncated draft pass of
 self-speculative decoding.
 
 A port of the matching subset of ``repro.models.lm``.  Parameters and
-caches keep the reference's tree — ``seg{i}/c{j}/{attn,ffn,ssd,rglru}/...``
+caches keep the reference's tree —
+``seg{i}/c{j}/{attn,mla,ssd,rglru,ffn,moe}/...``
 with a stacked leading layer axis per segment — and ``_run_segment`` walks
 that axis with a Python loop where the reference scans.  Cache writes
 happen in place (see ``blocks``); recurrent (SSD, RG-LRU) layers return
@@ -32,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.tree import tree_map
 
-from . import blocks, rglru, ssm
+from . import blocks, mla, rglru, ssm
 from .blocks import rms_norm, softcap
 from .config import LayerSpec, ModelConfig, Segment
 
@@ -41,7 +43,7 @@ _MIXER_GROUP = {"global": "paged", "mla": "paged", "local": "window",
                 "ssd": "recurrent", "rglru": "recurrent"}
 # layer kinds the port runs
 _PORTED = frozenset({"global+dense", "local+dense", "ssd+none",
-                     "rglru+dense"})
+                     "rglru+dense", "mla+dense", "mla+moe"})
 _STATE_MIXERS = ("ssd", "rglru")
 MODES = ("prefill", "decode", "train")
 
@@ -49,7 +51,10 @@ MODES = ("prefill", "decode", "train")
 def unsupported_reason(cfg: ModelConfig) -> Optional[str]:
     """Why the port cannot run ``cfg`` yet, or None: it runs decoder-only
     stacks of global- or sliding-window-attention layers and RG-LRU layers
-    (each with a dense FFN) and SSD layers."""
+    (each with a dense FFN), SSD layers and MLA layers (with a dense or an
+    MoE FFN).  Encoder-decoder and modality-frontend archs (a
+    ``frontend="vision"`` config, say) and other layer kinds, such as
+    sliding-window attention with an MoE FFN, are refused."""
     if cfg.n_enc_layers:
         return "encoder-decoder archs are not ported yet"
     if cfg.frontend:
@@ -76,12 +81,16 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     p: dict = {}
     if spec.mixer in ("global", "local"):
         p["attn"] = blocks.init_attention(gen, cfg, repeats, dtype, device)
+    elif spec.mixer == "mla":
+        p["mla"] = mla.init_mla(gen, cfg, repeats, dtype, device)
     elif spec.mixer == "ssd":
         p["ssd"] = ssm.init_ssd(gen, cfg, repeats, dtype, device)
     elif spec.mixer == "rglru":
         p["rglru"] = rglru.init_rglru(gen, cfg, repeats, dtype, device)
     if spec.ffn == "dense":
         p["ffn"] = blocks.init_ffn(gen, cfg, repeats, dtype, device)
+    elif spec.ffn == "moe":
+        p["moe"] = blocks.init_moe(gen, cfg, repeats, dtype, device)
     return p
 
 
@@ -89,7 +98,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
                 dtype=torch.bfloat16) -> dict:
     """Random parameters with the reference's distributions: embed
     N(0, 0.02^2), dense weights N(0, 1/d_in), norm scales zero (SSD and
-    RG-LRU leaves as ``ssm.init_ssd`` and ``rglru.init_rglru``).
+    RG-LRU leaves as ``ssm.init_ssd`` and ``rglru.init_rglru``; an MoE
+    router f32 whatever ``dtype``).
     ``device`` defaults to the CUDA card (and must be that of
     ``generator``)."""
     _check_supported(cfg)
@@ -123,7 +133,8 @@ def init_cache(cfg: ModelConfig, batch: int, kv_len: int,
     params, stacked along a leading layer axis: per attention layer
     ``{"attn": {"k", "v": [B, size, KV, hd], "pos": [size]}}`` (size
     ``kv_len``, or ``min(kv_len, window)`` for a sliding-window layer), per
-    SSD or RG-LRU layer ``{mixer: {"conv", "state"}}``
+    MLA layer ``{"mla": {"ckv", "krope", "pos"}}`` (``mla.init_mla_cache``),
+    per SSD or RG-LRU layer ``{mixer: {"conv", "state"}}``
     (``ssm.init_ssd_cache``, ``rglru.init_rglru_cache``)."""
     _check_supported(cfg)
     device = resolve_device(device)
@@ -134,6 +145,9 @@ def init_cache(cfg: ModelConfig, batch: int, kv_len: int,
         if spec.mixer == "rglru":
             return {"rglru": rglru.init_rglru_cache(cfg, batch, dtype,
                                                     device)}
+        if spec.mixer == "mla":
+            return {"mla": mla.init_mla_cache(cfg, batch, kv_len, dtype,
+                                              device)}
         return {"attn": blocks.init_attn_cache(
             cfg, batch, kv_len, dtype, device,
             local=spec.mixer == "local")}
@@ -231,7 +245,9 @@ def init_paged_caches(cfg: ModelConfig, n_slots: int, n_pages: int,
     """Paged decode cache, stacked to ``[repeats, ...]`` like
     ``init_cache``: per attention layer a pair of ``[n_pages, block_size,
     KV, hd]`` K/V pools (no slot axis: lanes are carved out by block
-    tables, a sliding-window layer's by window ring tables), per SSD or
+    tables, a sliding-window layer's by window ring tables), per MLA layer
+    a ``[n_pages, block_size, kv_lora_rank]`` latent pool and a
+    ``[n_pages, block_size, qk_rope_dim]`` RoPE-key pool, per SSD or
     RG-LRU layer slot-stacked recurrent state ``[repeats, n_slots, ...]``
     (one lane per slot, no blocks)."""
     _check_supported(cfg)
@@ -243,6 +259,9 @@ def init_paged_caches(cfg: ModelConfig, n_slots: int, n_pages: int,
         if spec.mixer == "rglru":
             return {"rglru": rglru.init_rglru_cache(cfg, n_slots, dtype,
                                                     device)}
+        if spec.mixer == "mla":
+            return {"mla": mla.init_paged_mla_cache(cfg, n_pages, block_size,
+                                                    dtype, device)}
         return {"attn": blocks.init_paged_attn_cache(cfg, n_pages,
                                                      block_size, dtype,
                                                      device)}
@@ -262,14 +281,19 @@ def _cache_entries(cfg: ModelConfig, caches: dict):
 
 def paged_cache_leaves(cfg: ModelConfig, caches: dict) -> list[tuple]:
     """(group, (a_key, b_key), leaf) for every physical pool leaf, in a
-    fixed order: group "global" for global attention, "window" for
-    sliding-window attention; the engine binds one ``PagedKVStore`` per
-    leaf, tagged with its group.  Recurrent state leaves are not listed
-    (see ``state_cache_leaves``)."""
-    return [("window" if spec.mixer == "local" else "global",
-             ("k_pages", "v_pages"), entry["attn"])
-            for spec, entry in _cache_entries(cfg, caches)
-            if spec.mixer in ("global", "local")]
+    fixed order: group "global" for global attention and MLA latents,
+    "window" for sliding-window attention; the engine binds one
+    ``PagedKVStore`` per leaf, tagged with its group.  Recurrent state
+    leaves are not listed (see ``state_cache_leaves``)."""
+    out = []
+    for spec, entry in _cache_entries(cfg, caches):
+        if spec.mixer in ("global", "local"):
+            out.append(("window" if spec.mixer == "local" else "global",
+                        ("k_pages", "v_pages"), entry["attn"]))
+        elif spec.mixer == "mla":
+            out.append(("global", ("ckv_pages", "krope_pages"),
+                        entry["mla"]))
+    return out
 
 
 def state_cache_leaves(cfg: ModelConfig, caches: dict) -> list[dict]:
@@ -402,9 +426,10 @@ def insert_paged_prompt(cfg: ModelConfig, caches: dict, single: dict,
                         null_block: int, skip_below: int = 0) -> dict:
     """Scatter a dense single-request prefill cache (``init_cache(cfg, 1,
     kv_len)`` after a prefill) into the paged tree, in place: attention
-    rows go to the physical blocks the lane's table row names
-    (``tables["global"]``, or ``tables["window"]`` for a sliding-window
-    layer, [W] each), at their absolute positions (rows whose position is
+    and MLA latent rows go to the physical blocks the lane's table row
+    names (``tables["global"]``, or ``tables["window"]`` for a
+    sliding-window layer, [W] each), at their absolute positions (rows
+    whose position is
     -1, or whose block the table does not cover, as behind a window ring,
     go to the null page); SSD and RG-LRU conv tail and state go into lane
     ``slot``.  Other lanes are untouched.
@@ -419,12 +444,17 @@ def insert_paged_prompt(cfg: ModelConfig, caches: dict, single: dict,
         if spec.mixer in _STATE_MIXERS:
             _scatter_state(entry[spec.mixer], one[spec.mixer], slot)
             continue
-        leaf, sl = entry["attn"], one["attn"]
+        if spec.mixer == "mla":
+            leaf, sl = entry["mla"], one["mla"]
+            pools = (("ckv_pages", sl["ckv"]), ("krope_pages", sl["krope"]))
+        else:
+            leaf, sl = entry["attn"], one["attn"]
+            pools = (("k_pages", sl["k"]), ("v_pages", sl["v"]))
         cpos = sl["pos"][0]                 # identical across repeats
         if skip_below:
             cpos = cpos.masked_fill(cpos < skip_below, -1)
         row = tables["window" if spec.mixer == "local" else "global"]
-        for pool, rows in (("k_pages", sl["k"]), ("v_pages", sl["v"])):
+        for pool, rows in pools:
             _scatter_rows(leaf[pool], row, cpos, rows[:, 0],
                           block_size=block_size, null_block=null_block)
     return caches
@@ -432,13 +462,14 @@ def insert_paged_prompt(cfg: ModelConfig, caches: dict, single: dict,
 
 def copy_paged_block(cfg: ModelConfig, caches: dict, src: int,
                      dst: int) -> dict:
-    """Copy physical page ``src`` onto ``dst`` in every global-attention
-    pool leaf, in place: the physical half of a prefix-cache copy-on-write
-    fork.  Window pools and recurrent state are never shared, so they are
-    untouched.  Returns ``caches``."""
+    """Copy physical page ``src`` onto ``dst`` in every global-group pool
+    leaf (attention K/V and MLA latents), in place: the physical half of a
+    prefix-cache copy-on-write fork.  Window pools and recurrent state are
+    never shared, so they are untouched.  Returns ``caches``."""
     for spec, entry in _cache_entries(cfg, caches):
-        if spec.mixer == "global":
-            for pool in entry["attn"].values():
+        if spec.mixer in ("global", "mla"):
+            for pool in entry["attn" if spec.mixer == "global"
+                              else "mla"].values():
                 pool[:, dst].copy_(pool[:, src])
     return caches
 
@@ -459,9 +490,12 @@ def _index(tree: dict, r: int) -> dict:
 def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, h, *,
                  positions, cache: Optional[dict], impl: str,
                  paged_tables=None, window_tables=None, key: tuple = (),
-                 state_sink: Optional[StateSink] = None, valid_len=None):
-    """One layer (global or sliding-window attention, SSD or RG-LRU, then
-    its FFN); returns the new residual."""
+                 state_sink: Optional[StateSink] = None, valid_len=None,
+                 moe_kw: Optional[dict] = None):
+    """One layer (global or sliding-window attention, MLA, SSD or RG-LRU,
+    then its dense or MoE FFN); returns the new residual.  ``moe_kw``: the
+    MoE layer's ``capacity_factor`` and ``lossless``; its aux loss is
+    dropped (train mode refuses MoE configs)."""
     if spec.mixer in _STATE_MIXERS:
         layer = ssm.ssd_layer if spec.mixer == "ssd" else rglru.rglru_layer
         sc = cache[spec.mixer] if cache else None
@@ -473,6 +507,10 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, h, *,
             else:
                 for k, t in new.items():
                     sc[k].copy_(t)
+    elif spec.mixer == "mla":
+        h, _ = mla.mla_layer(cfg, p["mla"], h, positions=positions,
+                             cache=cache["mla"] if cache else None,
+                             impl=impl, paged_tables=paged_tables)
     else:
         local = spec.mixer == "local"
         h, _ = blocks.attn_layer(cfg, p["attn"], h, local=local,
@@ -484,6 +522,8 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, h, *,
                                  valid_len=valid_len)
     if spec.ffn == "dense":
         h = blocks.ffn_layer(cfg, p["ffn"], h)
+    elif spec.ffn == "moe":
+        h, _ = blocks.moe_layer(cfg, p["moe"], h, **(moe_kw or {}))
     return h
 
 
@@ -491,7 +531,8 @@ def _run_segment(cfg: ModelConfig, si: int, seg: Segment, seg_p: dict, h,
                  *, positions, seg_cache, impl: str, paged_tables=None,
                  window_tables=None,
                  state_sink: Optional[StateSink] = None, valid_len=None,
-                 remat: bool = False, repeats: Optional[int] = None):
+                 remat: bool = False, repeats: Optional[int] = None,
+                 moe_kw: Optional[dict] = None):
     """The segment's first ``repeats`` repeats (default all) in order; the
     others, and their cache rows, are left alone.  ``remat``: each repeat's
     activations are recomputed in the backward pass instead of kept, as
@@ -505,7 +546,7 @@ def _run_segment(cfg: ModelConfig, si: int, seg: Segment, seg_p: dict, h,
                                  paged_tables=paged_tables,
                                  window_tables=window_tables,
                                  key=(si, ci, r), state_sink=state_sink,
-                                 valid_len=valid_len)
+                                 valid_len=valid_len, moe_kw=moe_kw)
             return h
 
         h = (checkpoint(body, h, use_reentrant=False,
@@ -522,7 +563,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             state_sink: Optional[StateSink] = None,
             valid_len: Optional[int] = None,
             remat: Optional[bool] = None,
-            layer_cap: Optional[int] = None) -> tuple:
+            layer_cap: Optional[int] = None,
+            capacity_factor: float = 1.25,
+            moe_lossless: Optional[bool] = None) -> tuple:
     """Returns (logits [B, S, padded_vocab], cache).
 
     tokens: [B, S] (decode: [B, 1]).  positions: [S] int32 absolute
@@ -549,12 +592,20 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     self-speculative decoding.  The layers not run, and their cache rows,
     are left as they are.
 
+    MoE layers dispatch with ``capacity_factor`` per expert, or drop
+    nothing with ``moe_lossless`` (None: lossless in decode mode only, the
+    reference's default).  Serving passes ``moe_lossless=True`` everywhere,
+    as the reference's engines do: what a capacity drops depends on how
+    many rows share the pass, so a chunk or a bucket would change tokens.
+
     Train mode (``mode="train"``): no cache, positions ``arange(S)``, and
     ``impl="plain"`` only, since no kernel of this package or of the
     reference has a backward; the plain layers run under autograd.
     ``remat`` (train mode only; None means on) recomputes each segment
-    repeat's activations in the backward pass.  Returns (logits, None);
-    the four ported layer kinds have no auxiliary loss."""
+    repeat's activations in the backward pass.  Returns (logits, None).
+    A config with MoE layers raises in train mode: the router's aux loss
+    is not ported to training yet, and training without it would be a
+    different objective."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     train = mode == "train"
@@ -571,6 +622,13 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     elif remat:
         raise ValueError("remat applies to train mode only")
     _check_supported(cfg)
+    if train and any(s.ffn == "moe" for s in cfg.layers()):
+        raise NotImplementedError(
+            f"{cfg.name}: training MoE layers is not ported yet (the "
+            "router aux loss has no training path)")
+    if moe_lossless is None:
+        moe_lossless = mode == "decode"
+    moe_kw = {"capacity_factor": capacity_factor, "lossless": moe_lossless}
     S = tokens.shape[1]
     h = params["embed"][tokens.long()]
     if cfg.emb_scale:
@@ -594,7 +652,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                          impl=impl, paged_tables=paged_tables,
                          window_tables=window_tables,
                          state_sink=state_sink, valid_len=valid_len,
-                         remat=remat, repeats=repeats)
+                         remat=remat, repeats=repeats, moe_kw=moe_kw)
 
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]

@@ -111,9 +111,13 @@ class CacheLayout:
 
 
 class PagedKVStore:
-    """Physical paged storage for a stack of layers: ``k_pages`` and
-    ``v_pages`` of shape ``[n_layers, n_blocks + 1, block_size, KV, hd]``,
-    page ``n_blocks`` being the null block."""
+    """Physical paged storage for a stack of layers of one cache group: a
+    pair of page pools ``k_pages`` and ``v_pages`` of shape ``[n_layers,
+    n_blocks + 1, block_size, *row]``, page ``n_blocks`` being the null
+    block.  Attention leaves pair K/V rows (``row = (KV, hd)``); MLA leaves
+    pair the latent ``ckv`` rows ``[kv_lora_rank]`` with the RoPE-key
+    ``krope`` rows ``[qk_rope_dim]``, so the two pools may differ in row
+    width (``from_pools``), and a block's bytes are the sum of both."""
 
     def __init__(self, config: CacheConfig, n_layers: int, n_kv_heads: int,
                  head_dim: int, dtype=torch.float32, device=None):
@@ -134,7 +138,7 @@ class PagedKVStore:
         return store
 
     def rebind(self, k_pages, v_pages) -> None:
-        if k_pages.shape[:3] != v_pages.shape[:3]:
+        if k_pages.shape[:3] != v_pages.shape[:3]:      # rows may differ
             raise ValueError(f"pool shapes disagree: {tuple(k_pages.shape)} "
                              f"vs {tuple(v_pages.shape)}")
         if k_pages.shape[1] != self.config.n_blocks + 1 or \
@@ -156,7 +160,7 @@ class PagedKVStore:
             per_v.numel() * per_v.element_size()
 
     def write_token(self, table: list, pos: int, k, v) -> None:
-        """Write one token's rows (``[n_layers, KV, hd]``) at logical
+        """Write one token's rows (``[n_layers, *row]``) at logical
         position ``pos`` of the lane backed by ``table``, in place."""
         block = table[pos // self.config.block_size]
         off = pos % self.config.block_size
@@ -164,7 +168,7 @@ class PagedKVStore:
         self.v_pages[:, block, off] = v
 
     def gather_slot(self, table: list, context_len: int) -> tuple:
-        """The lane's logical rows, ``[n_layers, context_len, KV, hd]``
+        """The lane's logical rows, ``[n_layers, context_len, *row]``
         each, gathered through ``table``."""
         idx = torch.as_tensor(table, dtype=torch.long,
                               device=self.k_pages.device)

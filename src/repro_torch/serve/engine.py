@@ -62,7 +62,10 @@ masked rows add exact zeros.
 
 ``impl="kernel"`` (default) launches the hand-written Hopper kernels on
 CUDA tensors (their plain versions on CPU tensors); ``impl="plain"`` is
-the plain PyTorch reference path.
+the plain PyTorch reference path.  Every serving forward dispatches MoE
+layers lossless (``lm.forward(moe_lossless=True)``), as the reference's
+engines do: capacity drops depend on the rows sharing a pass, so a bucket,
+a chunk or a batch of lanes would otherwise change a request's tokens.
 """
 
 from __future__ import annotations
@@ -109,7 +112,8 @@ def make_prefill_step(cfg: ModelConfig, impl: str = "kernel"):
     (next_tok [B], cache)."""
     def prefill_step(params, cache, tokens, sample_args=None):
         logits, cache = lm.forward(cfg, params, tokens, cache=cache,
-                                   mode="prefill", impl=impl)
+                                   mode="prefill", impl=impl,
+                                   moe_lossless=True)
         return _pick_token(logits[:, -1, :cfg.vocab_size], sample_args), \
             cache
     return prefill_step
@@ -120,7 +124,8 @@ def make_serve_step(cfg: ModelConfig, impl: str = "kernel"):
     (next_tok, cache)."""
     def serve_step(params, cache, tokens, pos, sample_args=None):
         logits, cache = lm.forward(cfg, params, tokens, positions=pos,
-                                   cache=cache, mode="decode", impl=impl)
+                                   cache=cache, mode="decode", impl=impl,
+                                   moe_lossless=True)
         return _pick_token(logits[:, -1, :cfg.vocab_size], sample_args), \
             cache
     return serve_step
@@ -137,7 +142,7 @@ def make_bucketed_prefill_step(cfg: ModelConfig, impl: str = "kernel"):
     def prefill_step(params, cache, tokens, true_len, sample_args=None):
         logits, cache = lm.forward(cfg, params, tokens, cache=cache,
                                    mode="prefill", impl=impl,
-                                   valid_len=true_len)
+                                   valid_len=true_len, moe_lossless=True)
         tok = _pick_token(logits[:, true_len - 1, :cfg.vocab_size],
                           sample_args)
         return tok, lm.mask_cache_positions(cache, true_len)
@@ -167,7 +172,7 @@ def make_chunk_prefill_step(cfg: ModelConfig, chunk: int,
         logits, _ = lm.forward(
             cfg, params, piece, positions=positions,
             cache=lm.lane_view(cfg, caches, slot), mode="prefill",
-            impl=impl,
+            impl=impl, moe_lossless=True,
             paged_tables=None if g_row is None else g_row[None],
             window_tables=None if w_row is None else w_row[None],
             valid_len=valid)
@@ -197,6 +202,7 @@ def make_paged_decode_step(cfg: ModelConfig, impl: str = "kernel"):
         logits, caches = lm.forward(cfg, params, toks[:, None],
                                     positions=pos, cache=caches,
                                     mode="decode", impl=impl,
+                                    moe_lossless=True,
                                     paged_tables=tables.get("global"),
                                     window_tables=tables.get("window"),
                                     state_sink=freeze)
@@ -230,6 +236,7 @@ def make_draft_decode_step(cfg: ModelConfig, draft_layers: int,
         logits, _ = lm.forward(
             cfg, params, tok.reshape(1, 1), positions=pos.reshape(1),
             cache=lm.lane_view(cfg, caches, slot), mode="decode", impl=impl,
+            moe_lossless=True,
             paged_tables=None if g_row is None else g_row[None],
             window_tables=None if w_row is None else w_row[None],
             layer_cap=draft_layers)
@@ -255,7 +262,7 @@ def make_verify_step(cfg: ModelConfig, width: int, impl: str = "kernel"):
         logits, _ = lm.forward(
             cfg, params, toks[None], positions=positions,
             cache=lm.lane_view(cfg, caches, slot), mode="prefill",
-            impl=impl,
+            impl=impl, moe_lossless=True,
             paged_tables=None if g_row is None else g_row[None],
             window_tables=None if w_row is None else w_row[None],
             valid_len=valid)
@@ -554,7 +561,8 @@ class ContinuousEngine:
         handoff (``serve.cache.BlockTransferBuffer``).  Each entry is
         ``(hash, payload)``, the payload one ``(k_page, v_page)`` pair per
         global pool leaf in ``lm.paged_cache_leaves`` order (the same on
-        every replica of a config).  The pages are copies: the pools are
+        every replica of a config; an MLA leaf's pair is its latent and
+        RoPE-key pages).  The pages are copies: the pools are
         written in place, and this replica may evict and reuse a block
         while its payload waits in the buffer.  The blocks stay this
         replica's."""

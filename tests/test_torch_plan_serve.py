@@ -37,7 +37,8 @@ from repro_torch.serve import ContinuousEngine, Engine
 
 torch.set_num_threads(2)
 MLP = "paper-mlp"
-SERVED = ("tinyllama-1.1b", "mamba2-370m", "recurrentgemma-2b", MLP)
+SERVED = ("tinyllama-1.1b", "mamba2-370m", "recurrentgemma-2b", MLP,
+          "deepseek-v2-lite-16b")
 KV_LEN = 48
 PROMPT_LENS = [5, 17, 9, 30, 3]
 MAX_NEW = [8, 12, 1, 10, 15]

@@ -408,7 +408,7 @@ def test_insert_paged_prompt_skip_below_equals_the_reference(tiny, skip):
 # the engine matrix
 # =============================================================================
 
-ARCHS = ("tinyllama-1.1b", "paper-mlp")
+ARCHS = ("tinyllama-1.1b", "paper-mlp", "deepseek-v2-lite-16b")
 ROWS = {
     "whole": {},
     "bucketed": {"bucket_prompts": True},

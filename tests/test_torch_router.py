@@ -43,7 +43,8 @@ torch.set_num_threads(2)
 KV_LEN = 64
 PROMPT_LENS = (5, 9, 13, 33)        # 33 spans two full 16-token blocks
 BUDGETS = (4, 6, 5, 3)
-ARCHS = ("tinyllama-1.1b", "paper-mlp", "mamba2-370m", "recurrentgemma-2b")
+ARCHS = ("tinyllama-1.1b", "paper-mlp", "mamba2-370m", "recurrentgemma-2b",
+         "deepseek-v2-lite-16b")
 MLP = "paper-mlp"
 
 

@@ -104,7 +104,8 @@ def test_serve_groups_match_reference():
     """The per-layer cache-group report over every registry arch (ported
     configs built from the reference's fields), and the port's refusal of
     every arch with a layer kind other than global or sliding-window
-    attention or RG-LRU with a dense FFN, or SSD with no FFN."""
+    attention or RG-LRU with a dense FFN, SSD with no FFN, or MLA with a
+    dense or an MoE FFN."""
     from repro.models.config import ModelConfig as JModelConfig
     from repro_torch.models.config import ModelConfig
     for name in jconfigs.available():
@@ -115,7 +116,8 @@ def test_serve_groups_match_reference():
         assert lm.serve_groups(cfg) == {k: ref[k] for k in
                                         ("paged", "window", "recurrent")}
         plain = {s.key for s in cfg.layers()} <= {
-            "global+dense", "local+dense", "ssd+none", "rglru+dense"} and \
+            "global+dense", "local+dense", "ssd+none", "rglru+dense",
+            "mla+dense", "mla+moe"} and \
             not cfg.n_enc_layers and not cfg.frontend
         assert (lm.unsupported_reason(cfg) is None) == plain, name
     assert lm.unsupported_reason(configs.get(SSM_ARCH)) is None
@@ -246,9 +248,10 @@ def test_engines_refuse_what_is_not_ported(models):
     with pytest.raises(ValueError, match="divisible"):
         ContinuousEngine(cfg, tp, paged=True, kv_len=40, block_size=16,
                          device="cpu")
-    mla = cfg.replace(layer_cycle=(("mla", "dense"),))
+    vision = cfg.replace(frontend="vision", frontend_tokens=8,
+                         frontend_dim=cfg.d_model)
     with pytest.raises(NotImplementedError, match="not ported"):
-        Engine(mla, tp, **kw)
+        Engine(vision, tp, **kw)
 
 
 def test_entry_points_need_a_card_unless_told_cpu(models, monkeypatch):

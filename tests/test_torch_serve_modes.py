@@ -47,7 +47,8 @@ from repro_torch.serve import (ContinuousEngine, Engine, bucket_length,
 from repro_torch.serve.cache import BlockAllocator, CacheConfig, CacheLayout
 
 torch.set_num_threads(2)
-ARCHS = ("tinyllama-1.1b", "mamba2-370m", "recurrentgemma-2b")
+ARCHS = ("tinyllama-1.1b", "mamba2-370m", "recurrentgemma-2b",
+         "deepseek-v2-lite-16b")
 KV_LEN = 64
 PROMPT_LENS = (5, 9, 13, 33)
 BUDGETS = (4, 6, 5, 3)

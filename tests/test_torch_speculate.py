@@ -43,7 +43,8 @@ from repro_torch.models import lm
 from repro_torch.serve import ContinuousEngine, Engine, SamplingParams
 
 torch.set_num_threads(2)
-ARCHS = ("tinyllama-1.1b", "mamba2-370m", "recurrentgemma-2b")
+ARCHS = ("tinyllama-1.1b", "mamba2-370m", "recurrentgemma-2b",
+         "deepseek-v2-lite-16b")
 KV_LEN = 64
 N_SLOTS = 2
 PROMPT_LENS = (5, 9, 13, 33)
