@@ -11,7 +11,9 @@ exit code:
    ``nvcc`` per source, all started together).
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the main paths' full-width shapes and the JAX kernel tests' shapes, with
-   those tests' bars.  Attention (H=32, KV=4, hd=64, block 16): ragged
+   those tests' bars; a bf16 attention case is held against the plain
+   version run in f32 on the same (bf16) values, the exact answer that the
+   kernel's output rounds.  Attention (H=32, KV=4, hd=64, block 16): ragged
    context lengths up to 1024, prompt lengths that are not multiples of 16
    or 128, Sq=1, a window case and a softcap case; at recurrentgemma's
    hd 256 (H=10, KV=1) with window 2048 and window 32; paged 1e-5 (f32),
@@ -51,7 +53,16 @@ exit code:
    q/k head dim 192, v head dim 128) in both dtypes: causal prompts of 17,
    131, 200 and 2048 rows, Sq = Skv of 1, 63, 64 and 65 without the causal
    mask, and a 131-row prompt one element past an aligned address; and
-   the wrapper's refusal of other split pairs on CUDA tensors.
+   the wrapper's refusal of other split pairs on CUDA tensors.  Head dim
+   96 (phi-3-vision, MHA: H = KV = 32) in both kernels and dtypes: paged
+   at the trace's contexts behind 576 frontend rows (68-block tables),
+   ragged contexts, and the split cases above; flash at the tile cases
+   above, prompts of 576 + 131 and 576 + 200 rows, a dense lane's Sq = 1
+   over 1,088 rows and a misaligned start.  Seamless-m4t-medium (H = KV =
+   16, hd 64): paged at its trace, causal flash, and flash as cross
+   attention (non-causal) of a 131-row prompt and of 4 decode lanes over
+   1,024 encoder frames, also with the last 24 positions -1.  Both
+   wrappers refuse head dim 80 on CUDA tensors.
 4. kernel_timing — both attention kernels in bf16 at TinyLlama's and
    recurrentgemma's head shapes, and the scans at mamba2-370m's and
    recurrentgemma-2b's (the SSD kernel's bf16 body; the RG-LRU kernel with
@@ -64,7 +75,9 @@ exit code:
    and a long one each (paged: one lane 4096 rows in; flash and the scans:
    a 2048-row prompt); flash also at deepseek-v2-lite's MLA shape (q/k
    192, v 128) at both lengths, with the kernels SDPA ran there (its
-   backend).
+   backend); and both attention kernels at phi-3-vision's hd 96, its
+   lanes' contexts and its prompt behind 576 frontend rows (paged: 68
+   blocks a table; flash: 707 rows, and 2048).
 5. serve   — the three main paths, one after the other (each followed by
    its timing, so that one path's weights never count in the other's
    peak memory), each with every launch counter zeroed
@@ -96,7 +109,20 @@ exit code:
    weights).  A diverging request of an MoE model also gives the plain
    path's least gap between the k-th and (k+1)-th router probability
    there (``router_gap``).  Its sampling, speculation, lazy pricing and
-   router fleets are left to the CPU tests.
+   router fleets are left to the CPU tests.  Then the modality-frontend
+   archs, each through ``serve``, ``adapt``, ``serve_modes`` and
+   ``timing`` (their decode policies and fleets are left to the CPU
+   tests): phi-3-vision-4.2b (3,824,225,280 parameters in the init tree
+   beside ``param_count()``'s 3,821,079,552; every request with 576 x
+   1,024 seeded stub image embeddings, projected and paged ahead of its
+   prompt: 32 flash launches per prefill, 32 paged per decode step), and
+   seamless-m4t-medium (982,579,200 beside 977,744,896; 1,024 x 1,024
+   stub frame embeddings through the 12-layer encoder at admission, on
+   the plain attention; per prefill 12 causal and 12 cross flash
+   launches, per decode step 12 paged and 12 flash, the lanes' single
+   query rows over their gathered cross block sets in one launch per
+   layer).  Request i's embeddings are standard normal from seed 500 + i
+   in every engine and oracle that serves it.
    adapt — after each path's ``serve``: the paper's §3 assistants
    (``adapt_plan``) over that plan under the run's
    ``device_interference`` and ``assistant_callback``; every delta
@@ -184,7 +210,11 @@ exit code:
    it ran: mamba2's must be the SSD kernel's tensor-core body only).
    deepseek-v2-lite's bf16 trace runs after its f32 weights are freed
    (the bf16 ones made from the same seed): tokens/s, decode step,
-   prefill, peak memory, launches and the profiled repeat only.
+   prefill, peak memory, launches and the profiled repeat only.  The
+   frontend archs' traces (their f32 weights cast): tokens/s, decode step,
+   prefill, peak memory, launches held to the serve formula, and a
+   profiled repeat of their first 4 requests for 8 tokens (flash must run
+   its tensor-core body).
 
 8. train   — single-card training, after the serving paths, with every
    launch counter zeroed before it and required to stay at zero (training
@@ -209,8 +239,8 @@ exit code:
    with ``--resume``; the losses of steps 4-6 within 1e-5 relative.
 
 Then the ``{"kernels": [...]}`` summary line (paged and flash attention at
-TinyLlama's hd 64, with recurrentgemma's hd 256 and, for flash,
-deepseek-v2-lite's q/k 192, v 128 beside them; every kernel
+TinyLlama's hd 64, with recurrentgemma's hd 256, phi-3-vision's hd 96
+and, for flash, deepseek-v2-lite's q/k 192, v 128 beside them; every kernel
 with its long shape; launches summed over every full-width run of phases
 ``serve``, ``serve_modes``, ``sample_spec``, ``prefix_router`` and
 ``adapt``, and by run),
@@ -243,7 +273,17 @@ MLP_ARCH = "paper-mlp"
 DS_ARCH = "deepseek-v2-lite-16b"
 # repro.models.config.ModelConfig.param_count() of DS_ARCH's config (the
 # port's ModelConfig has no param_count; its init tree is counted here)
-DS_REFERENCE_PARAM_COUNT = 15_759_554_560
+VLM_ARCH = "phi-3-vision-4.2b"
+ED_ARCH = "seamless-m4t-medium"
+# the reference configs' param_count(), beside the port's init tree
+REFERENCE_PARAM_COUNT = {DS_ARCH: 15_759_554_560, VLM_ARCH: 3_821_079_552,
+                         ED_ARCH: 977_744_896}
+# request i of a trace carries stub frontend embeddings seeded by this + i
+FRONTEND_SEED = 500
+# the profiled repeat of the frontend archs' bf16 traces: their first 4
+# requests for 8 tokens (the profiler's processing grows with the events)
+PROFILE_PROMPTS = 4
+PROFILE_NEW = 8
 PLAN_DEVICES = 4        # modelled H100 SXM cards the serve plans are for
 PROMPT_LENS = (17, 200, 45, 131, 77, 163, 29, 111)
 MAX_NEW = 32
@@ -433,6 +473,16 @@ def rglru_inputs(gen, dev, B, S, W):
     return a, bx
 
 
+def exact_inputs(*ts) -> list:
+    """``ts`` with every floating tensor in f32.  A bf16 attention case's
+    plain version runs on these: the plain version rounds its
+    probabilities to bf16 where the kernel rounds unnormalised ones, and
+    both round the output, so two correct bf16 results can sit an ulp
+    apart (0.03125 for outputs of 4 and more, past the 2e-2 bar); against
+    the f32 answer a correct kernel is off by its own rounding alone."""
+    return [t.float() if t.is_floating_point() else t for t in ts]
+
+
 def misaligned(t):
     """A contiguous copy of ``t`` that starts one element past an aligned
     address (as a view into a larger buffer can)."""
@@ -521,11 +571,23 @@ def phase_kernels(dev) -> dict:
          None),
         ("mlp_split3", 4, 8, 8, 64, 16, 64, [1, 17, 500, 1024], 0, 0.0, 3),
         ("mlp_hd16", 3, 4, 4, 16, 16, 8, [1, 50, 128], 0, 0.0, None),
+        # phi-3-vision: MHA at hd 96 (H = KV = 32), the trace's lanes 16
+        # tokens in behind 576 frontend rows (68-block tables), ragged
+        # contexts, and a forced split
+        ("phi3_main_trace", 4, 32, 32, 96, 16, 68, [610, 793, 638, 724], 0,
+         0.0, None),
+        ("phi3_main", 4, 32, 32, 96, 16, 64, [1, 17, 500, 1024], 0, 0.0,
+         None),
+        ("phi3_split3", 4, 32, 32, 96, 16, 64, [1, 17, 500, 1024], 0, 0.0,
+         3),
+        # seamless-m4t-medium's decoder self-attention: MHA, H = KV = 16
+        ("ed_main_trace", 4, 16, 16, 64, 16, 32, [18, 201, 46, 132], 0, 0.0,
+         None),
     ]
     # the split over the context: contexts of 1 row to 4096, one lane and
     # four, the wrapper's own n_split and forced ones (single-row lanes
     # leave most splits empty), and a window shorter than the context
-    for hd, H, KV in ((64, 32, 4), (256, 10, 1)):
+    for hd, H, KV in ((64, 32, 4), (256, 10, 1), (96, 32, 32)):
         for B, lens in ((1, [4096]), (1, [1]), (4, [1, 16, 17, 215]),
                         (4, [2048, 4096, 17, 1])):
             mb = -(-max(lens) // 16)
@@ -541,21 +603,21 @@ def phase_kernels(dev) -> dict:
         dname = str(dtype).split(".")[-1]
         for (name, B, H, KV, hd, bs, mb, lens, win, cap,
              n_split) in paged_cases:
-            q, kp, vp, tbl, ln = paged_inputs(gen, dev, dtype, B, H, KV, hd,
-                                              bs, mb, lens)
+            q, kp, vp, tbl, ln = paged_inputs(gen, dev, dtype, B, H, KV,
+                                              hd, bs, mb, lens)
             got = pa_ops.paged_attention(q, kp, vp, tbl, ln, window=win,
                                          logit_softcap=cap, n_split=n_split)
             torch.cuda.synchronize()
-            exp = pa_ref.reference(q[:, None], kp, vp, tbl, ln,
-                                   q_positions=(ln - 1)[:, None],
+            exp = pa_ref.reference(*exact_inputs(q[:, None], kp, vp), tbl,
+                                   ln, q_positions=(ln - 1)[:, None],
                                    window=win, logit_softcap=cap)[:, 0]
             err = (got.float() - exp.float()).abs().max().item()
             tol = TOL[("paged", dname)]
             rows.append({"kernel": "paged_attention", "case": name,
                          "dtype": dname, "max_abs_err": err, "tol": tol,
                          "ok": err < tol})
-            if dname == "float32" and name.startswith(("main", "rg_",
-                                                       "mlp_main")):
+            if dname == "float32" and name.startswith(
+                    ("main", "rg_", "mlp_main", "phi3_main", "ed_")):
                 main_err["paged_attention"] = max(
                     main_err["paged_attention"], err)
     flash_cases = [
@@ -583,11 +645,29 @@ def phase_kernels(dev) -> dict:
         ("mlp_tile_sq65_full", 1, 65, 65, 8, 8, 64, False, 0, 0.0, None),
         ("mlp_cached", 2, 37, 256, 8, 8, 64, True, 0, 0.0, 150),
         ("mlp_hd16", 2, 37, 37, 4, 4, 16, True, 0, 0.0, None),
+        # phi-3-vision at hd 96: prefills of the trace's 131- and 200-token
+        # prompts behind 576 frontend rows, a dense lane's decode step
+        # (1,088 rows, 807 resident), and a misaligned start
+        ("phi3_prefill_707", 1, 707, 707, 32, 32, 96, True, 0, 0.0, None),
+        ("phi3_prefill_776", 1, 776, 776, 32, 32, 96, True, 0, 0.0, None),
+        ("phi3_decode_sq1", 1, 1, 1088, 32, 32, 96, True, 0, 0.0, 807),
+        ("phi3_unaligned_131", 1, 131, 131, 32, 32, 96, True, 0, 0.0, None),
+        # seamless-m4t-medium: causal self-attention, and cross attention
+        # (non-causal) of a 131-row prompt and of 4 decode lanes over the
+        # 1,024 encoder frames, and over a gathered set whose last 24 rows
+        # are past the frames (position -1)
+        ("ed_prefill_131", 1, 131, 131, 16, 16, 64, True, 0, 0.0, None),
+        ("ed_cross_sq131", 1, 131, 1024, 16, 16, 64, False, 0, 0.0, None),
+        ("ed_cross_sq1_b4", 4, 1, 1024, 16, 16, 64, False, 0, 0.0, None),
+        ("ed_cross_tail_sq131", 1, 131, 1024, 16, 16, 64, False, 0, 0.0,
+         1000),
+        ("ed_cross_tail_sq1_b4", 4, 1, 1024, 16, 16, 64, False, 0, 0.0,
+         1000),
     ]
     # the tensor-core tiling: query lengths around and far past the 64-row
     # tile, causal and not, a window that cuts the prompt, a cached prefill
     # (Sq < Skv, -1 slots past the cache's fill) and a softcap
-    for hd, H, KV in ((64, 32, 4), (256, 10, 1)):
+    for hd, H, KV in ((64, 32, 4), (256, 10, 1), (96, 32, 32)):
         for Sq in (1, 63, 64, 65, 131, 200, 1024, 2048):
             for causal in (True, False):
                 flash_cases.append(
@@ -606,6 +686,8 @@ def phase_kernels(dev) -> dict:
         for (name, B, Sq, Skv, H, KV, hd, causal, win, cap,
              empty_from) in flash_cases:
             q, k, v = flash_inputs(gen, dev, dtype, B, Sq, Skv, H, KV, hd)
+            if "unaligned" in name:
+                q, k, v = misaligned(q), misaligned(k), misaligned(v)
             kpos = torch.arange(Skv, dtype=torch.int32, device=dev)
             if empty_from is not None:     # dense cache: unwritten slots
                 kpos = torch.where(kpos < empty_from, kpos, -1)
@@ -618,7 +700,7 @@ def phase_kernels(dev) -> dict:
                                          k_positions=kpos, causal=causal,
                                          window=win, logit_softcap=cap)
             torch.cuda.synchronize()
-            exp = fa_ref.reference(q, k, v, q_positions=qpos,
+            exp = fa_ref.reference(*exact_inputs(q, k, v), q_positions=qpos,
                                    k_positions=kpos, causal=causal,
                                    window=win, logit_softcap=cap)
             err = (got.float() - exp.float()).abs().max().item()
@@ -628,7 +710,7 @@ def phase_kernels(dev) -> dict:
                          "ok": err < tol})
             if dname == "float32" and name.startswith(
                     ("prefill", "decode", "rg_", "mlp_prefill",
-                     "mlp_decode")):
+                     "mlp_decode", "phi3_prefill", "phi3_decode", "ed_")):
                 main_err["flash_attention"] = max(
                     main_err["flash_attention"], err)
     # deepseek-v2-lite's MLA prefill: H = KV = 16, q/k 192 (128 + 64 RoPE
@@ -651,7 +733,7 @@ def phase_kernels(dev) -> dict:
             got = fa_ops.flash_attention(q, k, v, q_positions=pos,
                                          k_positions=pos, causal=causal)
             torch.cuda.synchronize()
-            exp = fa_ref.reference(q, k, v, q_positions=pos,
+            exp = fa_ref.reference(*exact_inputs(q, k, v), q_positions=pos,
                                    k_positions=pos, causal=causal)
             check(got.shape == exp.shape == (1, S, H, dv),
                   f"{name}: output {tuple(got.shape)}")
@@ -663,6 +745,25 @@ def phase_kernels(dev) -> dict:
             if dname == "float32" and name.startswith("mla_prefill"):
                 main_err["flash_attention"] = max(
                     main_err["flash_attention"], err)
+    # a head dim neither kernel takes is refused on the card too
+    q, kp, vp, tbl, ln = paged_inputs(gen, dev, torch.bfloat16, 1, 2, 2,
+                                      80, 16, 2, [20])
+    fq, fk, fv = flash_inputs(gen, dev, torch.bfloat16, 1, 8, 8, 2, 2, 80)
+    pos = torch.arange(8, dtype=torch.int32, device=dev)
+    for kernel, call in (
+            ("paged_attention",
+             lambda: pa_ops.paged_attention(q, kp, vp, tbl, ln)),
+            ("flash_attention",
+             lambda: fa_ops.flash_attention(fq, fk, fv, q_positions=pos,
+                                            k_positions=pos))):
+        try:
+            call()
+            refused = False
+        except ValueError:
+            refused = True
+        rows.append({"kernel": kernel, "case": "refuses_hd80",
+                     "dtype": "bfloat16", "refused": refused,
+                     "ok": refused})
     # every other split pair is refused on the card too
     for bad_dqk, bad_dv in ((192, 64), (128, 192), (256, 128)):
         q, k, v = flash_inputs(gen, dev, torch.bfloat16, 1, 8, 8, 2, 2,
@@ -830,6 +931,25 @@ def phase_kernels(dev) -> dict:
 
 # -- serving ------------------------------------------------------------------
 
+def cross_layers(cfg) -> int:
+    """Decoder layers with cross attention (every one of an enc-dec)."""
+    return cfg.n_layers if cfg.n_enc_layers else 0
+
+
+def frontend_embs(cfg, dev, n: int) -> list:
+    """Request i's stub frontend embeddings [frontend_tokens,
+    frontend_dim], standard normal from seed FRONTEND_SEED + i, for a
+    modality-frontend or enc-dec arch; Nones otherwise.  The same for
+    every engine and oracle that serves request i."""
+    import torch
+    if not (cfg.frontend or cfg.n_enc_layers):
+        return [None] * n
+    return [torch.randn((cfg.frontend_tokens, cfg.frontend_dim),
+                        generator=torch.Generator(device=dev).manual_seed(
+                            FRONTEND_SEED + i), device=dev)
+            for i in range(n)]
+
+
 def make_prompts(cfg, dev, seed: int) -> list:
     import torch
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -849,8 +969,11 @@ def serve_trace(cfg, params, prompts, dev, dtype, max_new=MAX_NEW,
     run, and ``engine.verify_passes`` the speculative verify passes (the
     engine keeps no counter of either)."""
     from repro_torch.serve import ContinuousEngine, SamplingParams
+    # a modality frontend's rows share the lanes: kv_len + those rows
+    # must fill whole blocks (a reduced phi-3's 8 rows: 504 + 8)
     sizing = ({"plan": plan} if plan is not None
-              else {"kv_len": KV_LEN, "n_slots": N_SLOTS})
+              else {"kv_len": KV_LEN - cfg.prepended_rows % BLOCK,
+                    "n_slots": N_SLOTS})
     eng = ContinuousEngine(cfg, params, block_size=BLOCK, impl=impl,
                            dtype=dtype, device=dev, **sizing, **mode)
     eng.ring_blocks_freed = 0
@@ -863,6 +986,7 @@ def serve_trace(cfg, params, prompts, dev, dtype, max_new=MAX_NEW,
         return fresh, freed
 
     eng.allocator.extend_window = counted_slide
+    fes = frontend_embs(cfg, dev, len(prompts))
     verify = getattr(eng, "_verify_step", None)
     if verify is not None:
         def counted_verify(*args):
@@ -873,7 +997,8 @@ def serve_trace(cfg, params, prompts, dev, dtype, max_new=MAX_NEW,
     for i, p in enumerate(prompts):
         sp = (SamplingParams(**SAMPLED, seed=SAMPLE_SEED + i) if sampled
               else None)
-        eng.submit(p, max_new, rid=i, arrival=i * STAGGER, sampling=sp)
+        eng.submit(p, max_new, rid=i, arrival=i * STAGGER,
+                   frontend_emb=fes[i], sampling=sp)
     try:
         return eng, eng.run()
     finally:
@@ -893,11 +1018,13 @@ def plain_tokens(cfg, params, prompts, dev, dtype,
     from repro_torch.serve import Engine
     plain = Engine(cfg, params, kv_len=KV_LEN, dtype=dtype, impl="plain",
                    device=dev)
-    return [plain.generate(torch.tensor([p], device=dev),
-                           max_new)[0].tolist() for p in prompts]
+    fes = frontend_embs(cfg, dev, len(prompts))
+    return [plain.generate(torch.tensor([p], device=dev), max_new,
+                           frontend_emb=None if fe is None else fe[None]
+                           )[0].tolist() for p, fe in zip(prompts, fes)]
 
 
-def router_gap(cfg, params, seq) -> float:
+def router_gap(cfg, params, seq, fe=None) -> float:
     """The plain path's least gap, over the MoE layers, between the k-th and
     the (k+1)-th router probability of the last row of ``seq`` (f32,
     lossless, as the engines dispatch): how near that row's expert choice
@@ -915,8 +1042,8 @@ def router_gap(cfg, params, seq) -> float:
 
     blocks.moe_route = recording
     try:
-        lm.forward(cfg, params, seq, mode="prefill", impl="plain",
-                   moe_lossless=True)
+        lm.forward(cfg, params, seq, frontend_emb=fe, mode="prefill",
+                   impl="plain", moe_lossless=True)
     finally:
         blocks.moe_route = route
     return min(gaps)
@@ -932,8 +1059,10 @@ def hold_against_plain(cfg, params, prompts, results, refs, dev,
     import torch
     from repro_torch.models import lm
     rows = []
+    fes = frontend_embs(cfg, dev, len(prompts))
     for rid, (p, ref) in enumerate(zip(prompts, refs)):
         got = results[rid]
+        fe = None if fes[rid] is None else fes[rid][None]
         check(len(got) == max_new, f"request {rid}: {len(got)} tokens")
         div = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b),
                    None)
@@ -941,13 +1070,14 @@ def hold_against_plain(cfg, params, prompts, results, refs, dev,
                "divergence_index": div, "margin": None}
         if div is not None:
             seq = torch.tensor([p + ref[:div]], device=dev)
-            logits, _ = lm.forward(cfg, params, seq, mode="prefill",
-                                   impl="plain", moe_lossless=True)
+            logits, _ = lm.forward(cfg, params, seq, frontend_emb=fe,
+                                   mode="prefill", impl="plain",
+                                   moe_lossless=True)
             top2 = logits[0, -1, :cfg.vocab_size].float().topk(2).values
             row["margin"] = (top2[0] - top2[1]).item()
             row["ok"] = row["margin"] < MARGIN
             if cfg.n_experts:
-                row["router_gap"] = router_gap(cfg, params, seq)
+                row["router_gap"] = router_gap(cfg, params, seq, fe)
         else:
             row["ok"] = True
         rows.append(row)
@@ -978,6 +1108,23 @@ def compile_serve_plan(cfg, cache):
                         Topology.homogeneous(PLAN_DEVICES, H100_SXM),
                         cache=cache)
     return plan, time.perf_counter() - t0
+
+
+def expected_paged_launches(cfg, prefills: int, decode_steps: int) -> dict:
+    """Each kernel's launches in a paged run of whole prefills: per
+    prefill, flash for every attention, MLA and cross-attention layer
+    (an enc-dec's cross attention over the encoder's frames) and a scan
+    per recurrent layer; per batched decode step, paged for every
+    attention layer and flash for every cross-attention layer (all lanes'
+    one query row over their gathered cross block sets, one launch)."""
+    mixers = [s.mixer for s in cfg.layers()]
+    n_attn, n_mla = attention_layers(cfg)
+    n_x = cross_layers(cfg)
+    return {"paged_attention": n_attn * decode_steps,
+            "flash_attention": (n_attn + n_mla + n_x) * prefills
+            + n_x * decode_steps,
+            "ssd_scan": mixers.count("ssd") * prefills,
+            "rglru_scan": mixers.count("rglru") * prefills}
 
 
 def phase_serve(dev, arch: str, cache, label: str = "serve") -> dict:
@@ -1031,16 +1178,11 @@ def phase_serve(dev, arch: str, cache, label: str = "serve") -> dict:
     tel = eng.telemetry
     decode_steps = sum(1 for s in tel.steps if s.active_slots)
     prefills = sum(s.prefills for s in tel.steps)
-    mixers = [s.mixer for s in cfg.layers()]
-    n_attn, n_mla = attention_layers(cfg)
-    expect = {"paged_attention": n_attn * decode_steps,
-              "flash_attention": (n_attn + n_mla) * prefills,
-              "ssd_scan": mixers.count("ssd") * prefills,
-              "rglru_scan": mixers.count("rglru") * prefills}
+    expect = expected_paged_launches(cfg, prefills, decode_steps)
     refs = plain_tokens(cfg, params, prompts, dev, torch.float32)
     rows = hold_against_plain(cfg, params, prompts, results, refs, dev)
-    extra = ({"reference_param_count": DS_REFERENCE_PARAM_COUNT}
-             if arch == DS_ARCH else {})
+    extra = ({"reference_param_count": REFERENCE_PARAM_COUNT[arch]}
+             if arch in REFERENCE_PARAM_COUNT else {})
     emit(label, arch=cfg.name, dtype="float32", params=n_params, **extra,
          layers=cfg.n_layers, peak_memory_bytes=peak,
          init_seconds=init_s, plan_key=plan.key,
@@ -1110,24 +1252,27 @@ def phase_adapt(served: dict, cache) -> dict:
 def expected_mode_launches(cfg, mode: dict, tel) -> dict:
     """Each kernel's launches in one run of ``mode``, from the trace as the
     telemetry saw it.  Chunked prefill: one SSD or RG-LRU launch per
-    recurrent layer and chunk, no flash launch (the chunk's attention is
-    the plain gather), paged launches from the decode steps only.  Dense
-    lanes: flash per attention layer and prefill or lane decode step, no
-    paged launch, one scan launch per recurrent layer and prefill.  MLA
-    layers launch flash per whole prefill only."""
+    recurrent layer and chunk, no flash launch for self-attention (the
+    chunk's attention is the plain gather), paged launches from the
+    decode steps only.  Dense lanes: flash per attention layer and prefill
+    or lane decode step, no paged launch, one scan launch per recurrent
+    layer and prefill.  MLA layers launch flash per whole prefill only.
+    An enc-dec's cross attention launches flash per layer and chunk,
+    prefill, batched decode step or lane decode step."""
     mixers = [s.mixer for s in cfg.layers()]
     n_attn, n_mla = attention_layers(cfg)
+    n_x = cross_layers(cfg)
     chunks = sum(s.prefill_chunks for s in tel.steps)
     prefills = sum(s.prefills for s in tel.steps)
     decode_steps = sum(1 for s in tel.steps if s.active_slots)
     lane_steps = sum(len(s.active_slots) for s in tel.steps)
     if mode.get("prefill_chunk"):
         return {"paged_attention": n_attn * decode_steps,
-                "flash_attention": 0,
+                "flash_attention": n_x * (chunks + decode_steps),
                 "ssd_scan": mixers.count("ssd") * chunks,
                 "rglru_scan": mixers.count("rglru") * chunks}
     return {"paged_attention": 0,
-            "flash_attention": n_attn * (prefills + lane_steps)
+            "flash_attention": (n_attn + n_x) * (prefills + lane_steps)
             + n_mla * prefills,
             "ssd_scan": mixers.count("ssd") * prefills,
             "rglru_scan": mixers.count("rglru") * prefills}
@@ -1178,7 +1323,8 @@ def phase_serve_modes(dev, served: dict) -> dict:
              reduced_ring_blocks_freed=seng.ring_blocks_freed)
         if mode.get("prefill_chunk"):
             C = mode["prefill_chunk"]
-            check(chunks == sum(-(-len(p) // C) for p in prompts),
+            F = cfg.prepended_rows       # a VLM's rows ride the chunks
+            check(chunks == sum(-(-(F + len(p)) // C) for p in prompts),
                   f"{chunks} chunks")
         else:
             check(lane_steps == len(prompts) * (MAX_NEW - 1),
@@ -1713,7 +1859,8 @@ def _leaves(tree):
             yield v
 
 
-def profile_serve(cfg, params, prompts, dev, untraced_wall: float) -> dict:
+def profile_serve(cfg, params, prompts, dev, untraced_wall: float,
+                  max_new: int = MAX_NEW) -> dict:
     """The same bf16 trace once more under ``torch.profiler``: device time
     by kernel name, the device's busy share of the traced and of the
     untraced wall time, and the tracing overhead.  Only the CUDA activity
@@ -1726,7 +1873,7 @@ def profile_serve(cfg, params, prompts, dev, untraced_wall: float) -> dict:
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve_trace(cfg, params, prompts, dev, torch.bfloat16)
+        serve_trace(cfg, params, prompts, dev, torch.bfloat16, max_new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         t1 = time.perf_counter()
@@ -1766,21 +1913,23 @@ def profile_serve(cfg, params, prompts, dev, untraced_wall: float) -> dict:
     }
 
 
+def to_bf16(tree: dict) -> dict:
+    """A parameter tree in bf16, the float32-only leaves kept."""
+    import torch
+    from repro_torch.convert import F32_LEAVES
+    return {k: to_bf16(v) if isinstance(v, dict)
+            else v if k in F32_LEAVES else v.to(torch.bfloat16)
+            for k, v in tree.items()}
+
+
 def time_serve(dev, served: dict) -> tuple:
     """The path's trace in bf16 (the f32 weights of phase ``serve`` cast,
     the float32-only SSD leaves kept): tokens/s, mean decode step and
     prefill, peak memory, and a profiled repeat.  Returns (serve metrics,
     bf16 params)."""
     import torch
-    from repro_torch.convert import F32_LEAVES
 
     cfg, prompts = served["cfg"], served["prompts"]
-
-    def to_bf16(tree):
-        return {k: to_bf16(v) if isinstance(v, dict)
-                else v if k in F32_LEAVES else v.to(torch.bfloat16)
-                for k, v in tree.items()}
-
     params = to_bf16(served.pop("params"))
     torch.cuda.empty_cache()
     serve_trace(cfg, params, prompts[:2], dev, torch.bfloat16, 4)  # warm-up
@@ -1976,16 +2125,18 @@ def attention_timing(dev, cfg, seed: int) -> dict:
     decode step of the trace's first four lanes 16 tokens in, and one lane
     4096 rows in; flash, the prefill of the trace's 131-row prompt, and a
     2048-row prompt (past the ~660-row ridge, where the tensor cores bound
-    it)."""
+    it).  A modality frontend's rows come first in both: its lanes' tables
+    span ``KV_LEN`` + those rows, and its prompt holds them."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(seed)
-    lens = [n + 16 for n in PROMPT_LENS[:N_SLOTS]]
+    F = cfg.prepended_rows
+    lens = [F + n + 16 for n in PROMPT_LENS[:N_SLOTS]]
     return {
         "paged_attention": paged_timing(gen, dev, cfg, lens,
-                                        KV_LEN // BLOCK),
+                                        (KV_LEN + F) // BLOCK),
         "paged_attention_long": paged_timing(gen, dev, cfg, [4096],
                                              4096 // BLOCK),
-        "flash_attention": flash_timing(gen, dev, cfg, PROMPT_LENS[3]),
+        "flash_attention": flash_timing(gen, dev, cfg, F + PROMPT_LENS[3]),
         "flash_attention_long": flash_timing(gen, dev, cfg, 2048),
     }
 
@@ -2052,8 +2203,10 @@ def rglru_timing(gen, dev, cfg, S) -> dict:
 
 
 def phase_kernel_timing(dev) -> dict:
-    """Both attention kernels at TinyLlama's and recurrentgemma's shapes
-    (``{arch: rows}``), flash at deepseek-v2-lite's MLA prefill shape, and
+    """Both attention kernels at TinyLlama's, recurrentgemma's and
+    phi-3-vision's (hd 96) shapes (``{arch: rows}``; phi-3's prompt and
+    tables behind its 576 frontend rows), flash at deepseek-v2-lite's MLA
+    prefill shape, and
     the scans at mamba2-370m's and recurrentgemma-2b's (``{"scans":
     rows}``), each at the trace's 131-row prompt and at a 2048-row one.
     They run before any serve trace: the profiler's short sessions lose
@@ -2062,7 +2215,7 @@ def phase_kernel_timing(dev) -> dict:
     import torch
     from repro_torch import configs
     timing = {arch: attention_timing(dev, configs.get(arch), seed)
-              for arch, seed in ((ARCH, 99), (RG_ARCH, 97))}
+              for arch, seed in ((ARCH, 99), (RG_ARCH, 97), (VLM_ARCH, 95))}
     # MLA's prefill shape (H = KV = 16, q/k 192, v 128): flash only, since
     # no kernel runs MLA's decode
     gen = torch.Generator(device=dev).manual_seed(96)
@@ -2122,14 +2275,80 @@ def phase_timing_rg(dev, served: dict) -> None:
                         for name, fn in launch_counters().items()})
 
 
+def time_bf16_trace(cfg, params, prompts, dev) -> dict:
+    """The bf16 trace once, untraced, after a short warm-up, with every
+    launch counter zeroed just before it: tokens/s, mean decode step and
+    prefill, peak memory, weight bytes, and the launches beside
+    ``expected_paged_launches``."""
+    import torch
+    serve_trace(cfg, params, prompts[:2], dev, torch.bfloat16, 4)  # warm-up
+    torch.cuda.synchronize()
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng, results = serve_trace(cfg, params, prompts, dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tel = eng.telemetry
+    n_tokens = sum(len(v) for v in results.values())
+    return {"tokens": n_tokens, "wall_seconds": wall,
+            "tokens_per_s": n_tokens / wall,
+            "mean_decode_step_ms": tel.mean_decode_step_ms(),
+            "mean_prefill_ms": tel.mean_prefill_ms(),
+            "max_memory_allocated_bytes":
+                torch.cuda.max_memory_allocated(dev),
+            "weight_bytes": sum(t.numel() * t.element_size()
+                                for t in _leaves(params)),
+            "peak_resident_bytes_by_group":
+                tel.peak_resident_bytes_by_group(),
+            "launches": {name: fn.launches
+                         for name, fn in counters.items()},
+            "expected_launches": expected_paged_launches(
+                cfg, sum(s.prefills for s in tel.steps),
+                sum(1 for s in tel.steps if s.active_slots))}
+
+
+def phase_timing_frontend(dev, served: dict) -> None:
+    """phi-3-vision's or seamless-m4t-medium's path: the bf16 trace (the
+    f32 weights of phase ``serve`` cast; ``time_bf16_trace``), then its
+    first PROFILE_PROMPTS requests for PROFILE_NEW tokens, untraced and
+    once more profiled (the busy share is that short trace's).  Flash must
+    run its tensor-core body."""
+    import torch
+
+    cfg, prompts = served["cfg"], served["prompts"]
+    params = to_bf16(served.pop("params"))
+    torch.cuda.empty_cache()
+    serve = time_bf16_trace(cfg, params, prompts, dev)
+    short = prompts[:PROFILE_PROMPTS]
+    t0 = time.perf_counter()
+    serve_trace(cfg, params, short, dev, torch.bfloat16, PROFILE_NEW)
+    torch.cuda.synchronize()
+    serve["profile"] = profile_serve(cfg, params, short, dev,
+                                     time.perf_counter() - t0, PROFILE_NEW)
+    serve["profile"]["trace"] = {"requests": PROFILE_PROMPTS,
+                                 "max_new": PROFILE_NEW}
+    del params
+    emit("timing", arch=cfg.name, dtype="bfloat16", layers=cfg.n_layers,
+         serve=serve)
+    check(serve["launches"] == serve["expected_launches"],
+          f"bf16 launches {serve['launches']} != expected "
+          f"{serve['expected_launches']}")
+    bodies = serve["profile"]["port_kernels"].get("flash_attention", {})
+    check(bodies and all("wgmma" in k for k in bodies["kernels"]),
+          f"the bf16 trace's flash launches ran {bodies}, not the "
+          "tensor-core body")
+
+
 def phase_timing_ds(dev, served: dict) -> None:
     """deepseek-v2-lite's path: the bf16 trace at full depth and width.
     The f32 weights (63 GB) are freed first and the bf16 ones made from
     the same seed (the f32 draws rounded, as a cast would give: the two
-    do not fit on the card together).  Tokens/s, mean decode step and
-    prefill, peak memory, the launches of the timed run (flash per MLA
-    layer and prefill, nothing else), and a profiled repeat (device time
-    by kernel name, busy share, flash's device time per launch at q/k 192,
+    do not fit on the card together).  ``time_bf16_trace`` (flash per MLA
+    layer and prefill, nothing else) and a profiled repeat (device time by
+    kernel name, busy share, flash's device time per launch at q/k 192,
     v 128)."""
     import gc
 
@@ -2142,38 +2361,15 @@ def phase_timing_ds(dev, served: dict) -> None:
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(0)
     params = lm.init_params(cfg, gen, dev, torch.bfloat16)
-    serve_trace(cfg, params, prompts[:2], dev, torch.bfloat16, 4)  # warm-up
-    torch.cuda.synchronize()
-    counters = launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    eng, results = serve_trace(cfg, params, prompts, dev, torch.bfloat16)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    tel = eng.telemetry
-    n_tokens = sum(len(v) for v in results.values())
-    prefills = sum(s.prefills for s in tel.steps)
-    expect = {name: 0 for name in counters}
-    expect["flash_attention"] = attention_layers(cfg)[1] * prefills
-    serve = {"tokens": n_tokens, "wall_seconds": wall,
-             "tokens_per_s": n_tokens / wall,
-             "mean_decode_step_ms": tel.mean_decode_step_ms(),
-             "mean_prefill_ms": tel.mean_prefill_ms(),
-             "max_memory_allocated_bytes":
-                 torch.cuda.max_memory_allocated(dev),
-             "weight_bytes": sum(t.numel() * t.element_size()
-                                 for t in _leaves(params)),
-             "launches": launches, "expected_launches": expect}
-    del eng
-    serve["profile"] = profile_serve(cfg, params, prompts, dev, wall)
+    serve = time_bf16_trace(cfg, params, prompts, dev)
+    serve["profile"] = profile_serve(cfg, params, prompts, dev,
+                                     serve["wall_seconds"])
     del params
     emit("timing", arch=cfg.name, dtype="bfloat16", layers=cfg.n_layers,
          serve=serve)
-    check(launches == expect,
-          f"bf16 launches {launches} != expected {expect}")
+    check(serve["launches"] == serve["expected_launches"],
+          f"bf16 launches {serve['launches']} != expected "
+          f"{serve['expected_launches']}")
     check("flash_attention" in serve["profile"]["port_kernels"],
           "the profiled bf16 trace launched no flash kernel")
 
@@ -2456,7 +2652,7 @@ def main() -> int:
         phase_sampler(dev)
         t = done("sampler", t)
         timing, timing_rg = measured[ARCH], measured[RG_ARCH]
-        timing_ds = measured[DS_ARCH]
+        timing_ds, timing_vlm = measured[DS_ARCH], measured[VLM_ARCH]
         timing.update(measured["scans"])
         # one path after the other, so that neither path's weights count
         # in the other's peak memory
@@ -2517,6 +2713,24 @@ def main() -> int:
             phase_timing_ds(dev, served)
             del served
             t = done(DS_ARCH, t)
+            # the modality-frontend archs: phi-3-vision (576 projected
+            # image rows ahead of each prompt, hd 96) and
+            # seamless-m4t-medium (encoder, cross attention over static
+            # cross block sets); their decode policies and fleets are left
+            # to the CPU tests
+            for arch in (VLM_ARCH, ED_ARCH):
+                phase = "serve"
+                served = phase_serve(dev, arch, cache)
+                by_path[arch] = served["launches"]
+                phase = "adapt"
+                phase_adapt(served, cache)
+                phase = "serve_modes"
+                for mode, counts in phase_serve_modes(dev, served).items():
+                    by_path[f"{arch}/{mode}"] = counts
+                phase = "timing"
+                phase_timing_frontend(dev, served)
+                del served
+                t = done(arch, t)
         # each kernel's launches over the paths' runs, and by path
         launches = {name: sum(p[name] for p in by_path.values())
                     for name in launch_counters()}
@@ -2558,6 +2772,10 @@ def main() -> int:
             row["hd256"] = {k: timing_rg[name][k] for k in timed + device}
             row["long_hd256"] = {k: timing_rg[name + "_long"][k]
                                  for k in timed + device}
+        if name in timing_vlm:       # the attention kernels at hd 96
+            row["hd96"] = {k: timing_vlm[name][k] for k in timed + device}
+            row["long_hd96"] = {k: timing_vlm[name + "_long"][k]
+                                for k in timed + device}
         if name in timing_ds:        # flash at MLA's q/k 192, v 128
             row["dqk192_dv128"] = {k: timing_ds[name][k]
                                    for k in timed + device}

@@ -8,12 +8,14 @@ from __future__ import annotations
 from repro_torch.models.config import ModelConfig
 
 from . import (deepseek_v2_lite_16b, mamba2_370m, paper_mlp,
-               recurrentgemma_2b, tinyllama_1_1b)
+               phi_3_vision_4_2b, recurrentgemma_2b, seamless_m4t_medium,
+               tinyllama_1_1b)
 
 _REGISTRY: dict[str, ModelConfig] = {
     mod.CONFIG.name: mod.CONFIG
     for mod in (tinyllama_1_1b, mamba2_370m, recurrentgemma_2b, paper_mlp,
-                deepseek_v2_lite_16b)}
+                deepseek_v2_lite_16b, phi_3_vision_4_2b,
+                seamless_m4t_medium)}
 
 
 def get(name: str) -> ModelConfig:

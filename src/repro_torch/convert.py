@@ -3,7 +3,8 @@
 ``params_from_numpy`` turns a parameter tree of nested dicts of numpy
 arrays — ``repro.models.lm.init_params`` output after
 ``jax.tree.map(np.asarray, ...)`` — into the port's tree of tensors under
-the same keys.  Every leaf goes through float32 first: a bf16 leaf
+the same keys (a modality frontend's projection and an enc-dec arch's
+encoder and cross-attention leaves included).  Every leaf goes through float32 first: a bf16 leaf
 converts exactly, and a float32 leaf is unchanged.  The SSD, RG-LRU and
 MoE leaves that the reference keeps in float32 whatever the model's dtype
 (``A_log``, ``D``, ``dt_bias``, ``a_param``, ``router``) stay float32.
@@ -30,6 +31,10 @@ def _check_keys(cfg, tree: dict) -> None:
                                       range(len(cfg.segments()))}
     if not cfg.tie_embeddings:
         want.add("unembed")
+    if cfg.n_enc_layers:
+        want |= {"enc_frontend", "enc", "enc_final_norm"}
+    elif cfg.frontend:
+        want.add("frontend_proj")
     if set(tree) != want:
         raise ValueError(f"parameter keys {sorted(tree)} do not match "
                          f"{cfg.name}'s {sorted(want)}")

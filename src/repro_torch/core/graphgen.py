@@ -247,8 +247,8 @@ def build_graph(cfg: ModelConfig, shape: ShapeConfig) -> Graph:
     prev = embed
 
     # modality frontend stub: projected precomputed embeddings join the stream
-    if cfg.frontend and not cfg.n_enc_layers:
-        ft = ctx.batch * cfg.frontend_tokens
+    if cfg.prepended_rows:
+        ft = ctx.batch * cfg.prepended_rows
         fp = _add(ctx, "frontend_proj", "matmul",
                   2.0 * ft * cfg.frontend_dim * cfg.d_model,
                   ft * (cfg.frontend_dim + cfg.d_model) * BF16,

@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 64, 128, 256)
+HEAD_DIMS = (16, 64, 96, 128, 256)
 # (q/k, v) head dims of flash attention where they differ: MLA's prefill
 SPLIT_HEAD_DIMS = ((192, 128),)
 

@@ -7,8 +7,8 @@
 // / sqrt(dqk)))) v[b, j, h/G] with GQA (G = H / KV), masks taken from
 // absolute positions: k_pos[j] >= 0 (-1 marks an empty cache slot), causal
 // k_pos[j] <= q_pos[i], window k_pos[j] > q_pos[i] - window.  Q and K rows
-// are dqk wide and V and out rows dv wide: dqk == dv in 16, 64, 128, 256,
-// or dqk 192 with dv 128 (multi-head latent attention's prefill: 128 + 64
+// are dqk wide and V and out rows dv wide: dqk == dv in 16, 64, 96, 128,
+// 256, or dqk 192 with dv 128 (multi-head latent attention's prefill: 128 + 64
 // RoPE columns of query and key, 128 of value).  Both bodies are templates
 // on <DQK, DV>.
 //
@@ -49,9 +49,11 @@
 //   * each CTA first finds the range of K tiles that any of its rows can see
 //     (from the positions) and walks only that range: tiles that the causal
 //     or window mask removes whole are neither loaded nor computed.  Ragged
-//     Sq and Skv are masked in the kernel, so every shape runs.  Head dim 16
-//     pads its shared-memory rows and its O fragment to 64 columns: its
-//     64-column boxes reach past the row, and TMA fills the rest with 0.
+//     Sq and Skv are masked in the kernel, so every shape runs.  Head dims 16
+//     and 96 pad their shared-memory rows and their O fragments to whole
+//     64-column blocks (one and two): the last box reaches past the row,
+//     TMA fills the rest with 0, Q K^T runs only the dqk / 16 k16 steps of
+//     real columns, and the epilogue stores only dv columns.
 //
 // float32 — the CUDA-core body (`flash_attention_f32_kernel`): a float32
 //   `wgmma` would run in TF32, whose 10-bit mantissa cannot meet the f32
@@ -118,7 +120,10 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   constexpr int kBK = Tile<DQK>::kBK;
   // kColThreads threads share a row of out: the thread owning columns
   // d_own + j * kColThreads (j < kCols) handles rows r0, r0 + kRowStep, ...
-  constexpr int kColThreads = DV < kThreads ? DV : kThreads;
+  // A row narrower than the CTA that does not divide it (dv 96) is shared
+  // by one warp, 3 columns a thread.
+  constexpr int kColThreads =
+      DV >= kThreads ? kThreads : (kThreads % DV == 0 ? DV : 32);
   constexpr int kCols = DV / kColThreads;
   constexpr int kRowStep = kThreads / kColThreads;
   constexpr int kAcc = kBQ / kRowStep;
@@ -291,10 +296,11 @@ constexpr int kLineBytes = 128;    // one swizzled row: 64 bf16
 constexpr int kBlockBytes = kTcRows * kLineBytes;  // 64 rows x 64 columns
 constexpr float kLog2e = 1.4426950408889634f;
 
-// 64-column blocks of a row of `HD` columns (padded to one block)
+// 64-column blocks of a row of `HD` columns, the last one padded (hd 16
+// to one block, hd 96 to two: TMA reads the columns past the row as 0)
 template <int HD>
 struct TcRow {
-  static constexpr int kBlocks = (HD < 64 ? 64 : HD) / 64;
+  static constexpr int kBlocks = (HD + 63) / 64;
   static constexpr int kTileBytes = kBlocks * kBlockBytes;
 };
 
@@ -729,7 +735,8 @@ EncodeTiled encode_tiled() {
 
 // A [B, rows, heads, HD] bf16 tensor as 64-column, 64-row boxes of one head,
 // 128-byte swizzled (the layout wgmma reads); rows past the end, and at
-// head dim 16 the columns past it, read 0.
+// head dims 16 and 96 the columns past the row, read 0 (the row stride,
+// 2 * HD bytes, is a multiple of 16, as TMA requires).
 bool tensor_map(CUtensorMap* map, const void* ptr, int B, int rows,
                 int heads, int HD) {
   EncodeTiled encode = encode_tiled();
@@ -794,6 +801,7 @@ cudaError_t dispatch(int hd, int dv, int dtype, const void* q,
     switch (hd) {
       case 16: return launch_f32<16, 16>(FLASH_ARGS);
       case 64: return launch_f32<64, 64>(FLASH_ARGS);
+      case 96: return launch_f32<96, 96>(FLASH_ARGS);
       case 128: return launch_f32<128, 128>(FLASH_ARGS);
       case 256: return launch_f32<256, 256>(FLASH_ARGS);
     }
@@ -801,6 +809,7 @@ cudaError_t dispatch(int hd, int dv, int dtype, const void* q,
     switch (hd) {
       case 16: return launch_bf16<16, 16>(FLASH_ARGS);
       case 64: return launch_bf16<64, 64>(FLASH_ARGS);
+      case 96: return launch_bf16<96, 96>(FLASH_ARGS);
       case 128: return launch_bf16<128, 128>(FLASH_ARGS);
       case 256: return launch_bf16<256, 256>(FLASH_ARGS);
     }

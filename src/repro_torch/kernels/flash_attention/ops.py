@@ -9,7 +9,7 @@ accumulators, P rounded to bf16 as the Pallas kernel rounds it); float32
 runs the CUDA-core body in full f32, since a float32 ``wgmma`` is TF32 and
 could not meet the f32 bar of 2e-5.  A CPU tensor runs the plain PyTorch
 version (``ref.reference``).  Q and K share one head dim, and V's is the
-same (16, 64, 128 or 256) or, for multi-head latent attention's prefill,
+same (16, 64, 96, 128 or 256) or, for multi-head latent attention's prefill,
 128 beside Q's 192 (``_checks.SPLIT_HEAD_DIMS``); the output's head dim
 follows V.  What the kernel does not take raises on either device:
 ``H % KV != 0``, any other pair of head dims, a dtype other than

@@ -4,7 +4,7 @@ A CUDA tensor launches the hand-written Hopper kernel
 (``paged_attention.cu``) once per call; a CPU tensor runs the plain
 PyTorch version (``ref.reference``, or ``ref.split_reference`` when
 ``n_split`` is given).  What the kernel does not take raises on either
-device: ``H % KV != 0``, a head dim outside 16/64/128/256, more query
+device: ``H % KV != 0``, a head dim outside 16/64/96/128/256, more query
 heads per KV head than ``max_group(hd)``, a dtype other than
 float32/bfloat16, non-contiguous inputs, an ``n_split`` that is not a
 positive int.  There is no quiet fallback.

@@ -105,15 +105,19 @@ struct Tile {
   static constexpr int kChunks = kRowBytes / 16;  // 16-byte chunks a row
   static constexpr int kPerChunk = 16 / int(sizeof(T));
   // K rows padded so that the two rows a quarter warp reads in the scores
-  // (4 threads each) fall on distinct banks
+  // (4 threads each) fall on distinct banks: a stride of 64 mod 128 bytes
+  // (a 192-byte bf16 row of hd 96 has it unpadded), or past a short row
   static constexpr int kKStride =
-      kRowBytes + (kRowBytes % 128 == 0 ? 64 : 16);
+      kRowBytes + (kRowBytes % 128 == 0 ? 64
+                   : kRowBytes % 128 == 64 ? 0 : 16);
   // rows per stage: 64, or fewer where K and V of one stage would pass
   // 64 KB
   static constexpr int kRows =
       65536 / (2 * kRowBytes) < 64 ? 65536 / (2 * kRowBytes) : 64;
   static constexpr int kStageBytes = kRows * (kKStride + kRowBytes);
-  // P V: a thread owns 2 columns of kMaxHeads heads at most, interleaved
+  // P V: a thread owns 2 columns of kMaxHeads heads at most, interleaved;
+  // where the column pairs do not divide the threads (hd 96: 48 pairs, 5
+  // head groups) the last kThreads % kColPairs threads own none
   static constexpr int kColPairs = HD / 2;
   static constexpr int kHeadGroups = kThreads / kColPairs;
   static constexpr int kMaxGroup = kHeadGroups * kMaxHeads;
@@ -285,9 +289,11 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     m_s[g] = kNegInf;
     l_s[g] = 0.f;
   }
-  // P V: this thread's 2 columns of heads hg, hg + kHeadGroups, ...
+  // P V: this thread's 2 columns of heads hg, hg + kHeadGroups, ...; a
+  // thread past the last whole head group (hg == kHeadGroups) owns no head
   const int cc = tid % TT::kColPairs;
   const int hg = tid / TT::kColPairs;
+  const int n_own = hg < TT::kHeadGroups ? G : 0;
   float2 acc[kMaxHeads];
 #pragma unroll
   for (int i = 0; i < kMaxHeads; ++i) acc[i] = make_float2(0.f, 0.f);
@@ -395,7 +401,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
     for (int i = 0; i < kMaxHeads; ++i) {
       const int g = hg + i * TT::kHeadGroups;
-      if (g < G) {
+      if (g < n_own) {
         const float a = a_s[g];
         acc[i] = make_float2(a * acc[i].x, a * acc[i].y);
       }
@@ -406,7 +412,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
       for (int i = 0; i < kMaxHeads; ++i) {
         const int g = hg + i * TT::kHeadGroups;
-        if (g < G) {
+        if (g < n_own) {
           const float p = p_s[g * TR + t];
           acc[i].x = fmaf(p, v.x, acc[i].x);
           acc[i].y = fmaf(p, v.y, acc[i].y);
@@ -420,7 +426,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
     for (int i = 0; i < kMaxHeads; ++i) {
       const int g = hg + i * TT::kHeadGroups;
-      if (g < G) {
+      if (g < n_own) {
         const float inv = 1.f / fmaxf(l_s[g], 1e-30f);
         store2(out + (head0 + g) * HD + 2 * cc,
                make_float2(acc[i].x * inv, acc[i].y * inv));
@@ -441,7 +447,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
     for (int i = 0; i < kMaxHeads; ++i) {
       const int g = hg + i * TT::kHeadGroups;
-      if (g < G)
+      if (g < n_own)
         reinterpret_cast<float2*>(acc4 + size_t(split) * n4)[g * HD / 2 + cc] =
             acc[i];
     }
@@ -543,6 +549,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k_pages,
   switch (hd) {
     case 16: return launch<T, 16>(PAGED_ARGS);
     case 64: return launch<T, 64>(PAGED_ARGS);
+    case 96: return launch<T, 96>(PAGED_ARGS);
     case 128: return launch<T, 128>(PAGED_ARGS);
     case 256: return launch<T, 256>(PAGED_ARGS);
     default: return cudaErrorInvalidValue;

@@ -1,8 +1,11 @@
 """Serving launcher of the port: static batch, or continuous batching over
 dense per-slot lanes or the paged KV cache (window block rings for
 sliding-window layers, per-lane recurrent state slabs for mamba2's and
-recurrentgemma's recurrent layers, and latent pools for deepseek-v2-lite's
-multi-head latent attention), with whole, bucketed (``--bucket``) or
+recurrentgemma's recurrent layers, latent pools for deepseek-v2-lite's
+multi-head latent attention, and static cross block sets for
+seamless-m4t-medium's encoder frames; phi-3-vision's projected image rows
+page through its decoder tables: requests of these two archs carry
+seeded stub frontend embeddings), with whole, bucketed (``--bucket``) or
 chunked (``--chunk-prefill C``, paged only) prefill, per-request sampling
 (``--temperature``, ``--top-k``, ``--top-p``; request i samples with seed
 ``--sample-seed + i``), self-speculative decoding (``--speculate K``,
@@ -27,6 +30,10 @@ Usage (on the CUDA card; ``--device cpu`` runs the plain versions):
         --arch recurrentgemma-2b --continuous --paged
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v2-lite-16b --continuous --paged
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch phi-3-vision-4.2b --continuous --paged
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-medium --continuous --paged --chunk-prefill 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --continuous --paged --adapt --devices 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
@@ -49,8 +56,18 @@ Usage (on the CUDA card; ``--device cpu`` runs the plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v2-lite-16b --reduced --continuous --paged \
         --prefix-cache --shared-prefix 16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch phi-3-vision-4.2b --reduced --continuous --paged \
+        --kv-len 56 --prompt-len 8 --max-new 6 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-medium --reduced --continuous --paged \
+        --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-mlp \
         --reduced --continuous --paged --adapt --devices 4 --device cpu
+
+A modality-frontend arch's paged lanes hold its frontend rows ahead of the
+prompt, so ``--kv-len`` plus those rows must be a multiple of the block
+size (16): 128 + 576 for phi-3-vision, 56 + 8 at its reduced size.
 
 ``--adapt`` closes the paper's compiler/assistant loop on the continuous
 path: the engine is sized from a plan compiled (or fetched from the plan
@@ -62,7 +79,9 @@ figures, not measured.
 
 Weights are random, drawn from ``--seed`` with a ``torch.Generator`` on
 the serving device; prompts (the shared prefix first) come from the same
-generator.
+generator, and so do the stub frontend embeddings of a modality-frontend
+or enc-dec arch (standard normal, one [frontend_tokens, frontend_dim]
+block per request; the CLIP and conformer towers are not modelled).
 """
 
 from __future__ import annotations
@@ -91,8 +110,9 @@ def _static(args, cfg, params, gen, device, dtype):
                  device=device)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=device)
+    fe = _frontend_emb(cfg, gen, device, args.batch)
     t0 = time.perf_counter()
-    out = eng.generate(prompts, max_new_tokens=args.max_new)
+    out = eng.generate(prompts, max_new_tokens=args.max_new, frontend_emb=fe)
     _sync(device)
     dt = time.perf_counter() - t0
     toks = args.batch * args.max_new
@@ -101,11 +121,21 @@ def _static(args, cfg, params, gen, device, dtype):
     print("first sequence:", out[0].tolist())
 
 
+def _frontend_emb(cfg, gen, device, *batch):
+    """Seeded stub frontend embeddings ``[*batch, frontend_tokens,
+    frontend_dim]`` for a modality-frontend or enc-dec arch, else None."""
+    if not (cfg.frontend or cfg.n_enc_layers):
+        return None
+    return torch.randn(tuple(batch) + (cfg.frontend_tokens, cfg.frontend_dim),
+                       generator=gen, device=device)
+
+
 def _trace(args, cfg, gen, device) -> list:
-    """The arrival trace, ``(prompt, sampling)`` per request, shared by the
-    single-engine and routed paths (``--replicas`` changes placement, never
-    the workload).  With ``--shared-prefix P`` every prompt opens with the
-    same P tokens, the workload the prefix cache deduplicates."""
+    """The arrival trace, ``(prompt, frontend_emb, sampling)`` per request,
+    shared by the single-engine and routed paths (``--replicas`` changes
+    placement, never the workload).  With ``--shared-prefix P`` every
+    prompt opens with the same P tokens, the workload the prefix cache
+    deduplicates."""
     shared = (torch.randint(0, cfg.vocab_size, (args.shared_prefix,),
                             generator=gen, device=device).tolist()
               if args.shared_prefix > 0 else [])
@@ -117,7 +147,7 @@ def _trace(args, cfg, gen, device) -> list:
         sp = (SamplingParams(temperature=args.temperature, top_k=args.top_k,
                              top_p=args.top_p, seed=args.sample_seed + i)
               if args.temperature > 0 else None)
-        out.append((shared + prompt, sp))
+        out.append((shared + prompt, _frontend_emb(cfg, gen, device), sp))
     return out
 
 
@@ -149,9 +179,9 @@ def _router(args, cfg, params, gen, device, dtype):
         print(f"[router] {args.arch}: disaggregation unavailable "
               f"({router.disagg_unsupported_reason}) — running "
               f"{args.replicas} co-located replicas")
-    for i, (prompt, sp) in enumerate(_trace(args, cfg, gen, device)):
+    for i, (prompt, fe, sp) in enumerate(_trace(args, cfg, gen, device)):
         router.submit(prompt, max_new_tokens=args.max_new, rid=i,
-                      arrival=i * args.stagger, sampling=sp)
+                      arrival=i * args.stagger, frontend_emb=fe, sampling=sp)
     t0 = time.perf_counter()
     results = router.run()
     _sync(device)
@@ -200,9 +230,9 @@ def _continuous(args, cfg, params, gen, device, dtype):
                            speculate=args.speculate,
                            draft_layers=args.draft_layers,
                            dtype=dtype, device=device, plan=plan)
-    for i, (prompt, sp) in enumerate(_trace(args, cfg, gen, device)):
+    for i, (prompt, fe, sp) in enumerate(_trace(args, cfg, gen, device)):
         eng.submit(prompt, max_new_tokens=args.max_new, rid=i,
-                   arrival=i * args.stagger, sampling=sp)
+                   arrival=i * args.stagger, frontend_emb=fe, sampling=sp)
     t0 = time.perf_counter()
     results = eng.run()
     dt = time.perf_counter() - t0

@@ -230,7 +230,8 @@ def attn_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *, local: bool,
                positions: torch.Tensor, cache: Optional[dict] = None,
                impl: str = "kernel",
                paged_tables: Optional[torch.Tensor] = None,
-               valid_len: Optional[int] = None) -> tuple:
+               valid_len: Optional[int] = None,
+               kv_override: Optional[tuple] = None) -> tuple:
     """Pre-norm attention block, global or (``local``) sliding-window over
     ``cfg.window_size``.  Returns (residual output, cache).
 
@@ -249,11 +250,22 @@ def attn_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, *, local: bool,
     the window are the null page) and the window mask keeps rows behind
     ``pos - window`` out.  ``valid_len`` (dense prefill only): rows at
     positions >= ``valid_len`` are padding and never displace real rows of
-    a window ring."""
+    a window ring.
+
+    Cross attention (``kv_override = (k [B, Skv, KV, hd], v, k_positions
+    [Skv])``): the queries, without RoPE, attend non-causally over the
+    given K/V (rows at position -1 are empty) through the flash kernel,
+    whatever the cache; a decode step's [B] lanes are one launch of Sq =
+    1, the queries' positions being immaterial without a causal mask."""
     B, S, _ = x.shape
     window = cfg.window_size if local else 0
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q = (h @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    if kv_override is not None:
+        k, v, k_pos = kv_override
+        o = attention(q, k, v, q_positions=positions.reshape(-1)[:S],
+                      k_positions=k_pos, causal=False, impl=impl)
+        return x + o.reshape(B, S, cfg.q_dim) @ p["wo"], cache
     k = (h @ p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     v = (h @ p["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     cap = cfg.attn_logit_softcap

@@ -116,6 +116,14 @@ class ModelConfig:
             out.append(LayerSpec(mixer, ffn))
         return tuple(out)
 
+    @property
+    def prepended_rows(self) -> int:
+        """Decoder rows a modality frontend prepends to every prompt: the
+        F projected frontend rows of a VLM; 0 for an enc-dec arch, whose
+        frames stay in the cross set, and for a token-only arch."""
+        return self.frontend_tokens \
+            if (self.frontend and not self.n_enc_layers) else 0
+
     def enc_layers(self) -> tuple[LayerSpec, ...]:
         return tuple(LayerSpec("global", "dense")
                      for _ in range(self.n_enc_layers))

@@ -1,14 +1,19 @@
-"""Model assembly for decoder-only archs built of global- or
-sliding-window-attention layers with a dense FFN, Mamba-2 SSD layers,
-RG-LRU layers with a dense FFN and multi-head latent attention layers with
-a dense or a mixture-of-experts FFN: parameter init, caches (dense,
-per-slot dense lanes and paged) and ``forward`` in prefill, chunk-prefill,
-decode and train modes, with ``layer_cap`` for the truncated draft pass of
-self-speculative decoding.
+"""Model assembly for stacks of global- or sliding-window-attention
+layers with a dense FFN, Mamba-2 SSD layers, RG-LRU layers with a dense
+FFN and multi-head latent attention layers with a dense or a
+mixture-of-experts FFN, decoder-only, behind a modality frontend (a
+``frontend="vision"`` config: projected frontend rows prepend the decoder
+sequence) or under a bidirectional encoder (enc-dec: every decoder layer
+cross-attends to the encoder's output): parameter init, caches (dense,
+per-slot dense lanes and paged, with enc-dec cross K/V as a dense leaf or
+a static per-lane cross block set) and ``forward`` in prefill,
+chunk-prefill, decode and train modes, with ``layer_cap`` for the
+truncated draft pass of self-speculative decoding.
 
 A port of the matching subset of ``repro.models.lm``.  Parameters and
 caches keep the reference's tree —
-``seg{i}/c{j}/{attn,mla,ssd,rglru,ffn,moe}/...``
+``seg{i}/c{j}/{attn,mla,ssd,rglru,xattn,ffn,moe}/...`` (and
+``frontend_proj``, or ``enc_frontend``, ``enc`` and ``enc_final_norm``)
 with a stacked leading layer axis per segment — and ``_run_segment`` walks
 that axis with a Python loop where the reference scans.  Cache writes
 happen in place (see ``blocks``); recurrent (SSD, RG-LRU) layers return
@@ -49,16 +54,12 @@ MODES = ("prefill", "decode", "train")
 
 
 def unsupported_reason(cfg: ModelConfig) -> Optional[str]:
-    """Why the port cannot run ``cfg`` yet, or None: it runs decoder-only
-    stacks of global- or sliding-window-attention layers and RG-LRU layers
-    (each with a dense FFN), SSD layers and MLA layers (with a dense or an
-    MoE FFN).  Encoder-decoder and modality-frontend archs (a
-    ``frontend="vision"`` config, say) and other layer kinds, such as
-    sliding-window attention with an MoE FFN, are refused."""
-    if cfg.n_enc_layers:
-        return "encoder-decoder archs are not ported yet"
-    if cfg.frontend:
-        return "modality-frontend archs are not ported yet"
+    """Why the port cannot run ``cfg`` yet, or None: it runs stacks of
+    global- or sliding-window-attention layers and RG-LRU layers (each
+    with a dense FFN), SSD layers and MLA layers (with a dense or an MoE
+    FFN), decoder-only, behind a modality frontend or under an encoder.
+    Other layer kinds, such as sliding-window attention with an MoE FFN,
+    are refused."""
     other = sorted({s.key for s in cfg.layers()} - _PORTED)
     if other:
         return f"layer kinds {other} are not ported yet"
@@ -76,8 +77,11 @@ def _check_supported(cfg: ModelConfig) -> None:
 # =============================================================================
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
-                repeats: int, dtype, device) -> dict:
-    """One cycle entry's parameters, stacked to ``[repeats, ...]``."""
+                repeats: int, dtype, device, cross: bool = False) -> dict:
+    """One cycle entry's parameters, stacked to ``[repeats, ...]``; with
+    ``cross`` (an enc-dec decoder layer) also its cross attention
+    ``xattn``, which has the same leaves as ``attn`` (its K and V project
+    the encoder's output)."""
     p: dict = {}
     if spec.mixer in ("global", "local"):
         p["attn"] = blocks.init_attention(gen, cfg, repeats, dtype, device)
@@ -87,6 +91,8 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
         p["ssd"] = ssm.init_ssd(gen, cfg, repeats, dtype, device)
     elif spec.mixer == "rglru":
         p["rglru"] = rglru.init_rglru(gen, cfg, repeats, dtype, device)
+    if cross:
+        p["xattn"] = blocks.init_attention(gen, cfg, repeats, dtype, device)
     if spec.ffn == "dense":
         p["ffn"] = blocks.init_ffn(gen, cfg, repeats, dtype, device)
     elif spec.ffn == "moe":
@@ -99,7 +105,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     """Random parameters with the reference's distributions: embed
     N(0, 0.02^2), dense weights N(0, 1/d_in), norm scales zero (SSD and
     RG-LRU leaves as ``ssm.init_ssd`` and ``rglru.init_rglru``; an MoE
-    router f32 whatever ``dtype``).
+    router f32 whatever ``dtype``).  A modality-frontend arch adds
+    ``frontend_proj`` [frontend_dim, d_model]; an enc-dec arch adds
+    ``xattn`` to every decoder layer, ``enc_frontend`` [frontend_dim,
+    d_model], the encoder stack ``enc`` (``{"attn", "ffn"}`` stacked to
+    ``[n_enc_layers, ...]``) and ``enc_final_norm``.
     ``device`` defaults to the CUDA card (and must be that of
     ``generator``)."""
     _check_supported(cfg)
@@ -114,11 +124,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     if not cfg.tie_embeddings:
         params["unembed"] = blocks.dense_init(
             generator, (d, cfg.padded_vocab), dtype, device)
+    if cfg.prepended_rows:
+        params["frontend_proj"] = blocks.dense_init(
+            generator, (cfg.frontend_dim, d), dtype, device)
+    cross = bool(cfg.n_enc_layers)
     for si, seg in enumerate(cfg.segments()):
         params[f"seg{si}"] = {
             f"c{ci}": _init_layer(generator, cfg, spec, seg.repeats, dtype,
-                                  device)
+                                  device, cross=cross)
             for ci, spec in enumerate(seg.cycle)}
+    if cross:
+        params["enc_frontend"] = blocks.dense_init(
+            generator, (cfg.frontend_dim, d), dtype, device)
+        params["enc"] = _init_layer(generator, cfg,
+                                    LayerSpec("global", "dense"),
+                                    cfg.n_enc_layers, dtype, device)
+        params["enc_final_norm"] = torch.zeros((d,), dtype=dtype,
+                                               device=device)
     return params
 
 
@@ -135,22 +157,31 @@ def init_cache(cfg: ModelConfig, batch: int, kv_len: int,
     ``kv_len``, or ``min(kv_len, window)`` for a sliding-window layer), per
     MLA layer ``{"mla": {"ckv", "krope", "pos"}}`` (``mla.init_mla_cache``),
     per SSD or RG-LRU layer ``{mixer: {"conv", "state"}}``
-    (``ssm.init_ssd_cache``, ``rglru.init_rglru_cache``)."""
+    (``ssm.init_ssd_cache``, ``rglru.init_rglru_cache``); an enc-dec
+    decoder layer also ``{"xattn": {"k", "v": [B, frontend_tokens, KV,
+    hd]}}``, the cross K/V a prefill projects from the encoder's output
+    and decode reads."""
     _check_supported(cfg)
     device = resolve_device(device)
 
     def layer_cache(spec: LayerSpec) -> dict:
         if spec.mixer == "ssd":
-            return {"ssd": ssm.init_ssd_cache(cfg, batch, dtype, device)}
-        if spec.mixer == "rglru":
-            return {"rglru": rglru.init_rglru_cache(cfg, batch, dtype,
-                                                    device)}
-        if spec.mixer == "mla":
-            return {"mla": mla.init_mla_cache(cfg, batch, kv_len, dtype,
-                                              device)}
-        return {"attn": blocks.init_attn_cache(
-            cfg, batch, kv_len, dtype, device,
-            local=spec.mixer == "local")}
+            c = {"ssd": ssm.init_ssd_cache(cfg, batch, dtype, device)}
+        elif spec.mixer == "rglru":
+            c = {"rglru": rglru.init_rglru_cache(cfg, batch, dtype, device)}
+        elif spec.mixer == "mla":
+            c = {"mla": mla.init_mla_cache(cfg, batch, kv_len, dtype,
+                                           device)}
+        else:
+            c = {"attn": blocks.init_attn_cache(
+                cfg, batch, kv_len, dtype, device,
+                local=spec.mixer == "local")}
+        if cfg.n_enc_layers:
+            shape = (batch, cfg.frontend_tokens, cfg.n_kv_heads,
+                     cfg.head_dim)
+            c["xattn"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                          "v": torch.zeros(shape, dtype=dtype, device=device)}
+        return c
 
     return {f"seg{si}": {
         f"c{ci}": {k: _stacked(v, seg.repeats)
@@ -188,11 +219,16 @@ def serve_groups(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     """Per-layer serving report: cache group -> layer indices ("paged":
     global attention behind growing block tables; "window": sliding-window
     attention behind per-slot block rings; "recurrent": O(1) per-slot scan
-    state)."""
+    state).  Those three partition the layers; "cross" is an overlay
+    naming every decoder layer of an enc-dec stack, whose cross K/V sits
+    in a static per-slot cross block set.  A modality frontend has no
+    group: its projected rows page through the self-attention groups."""
     out: dict[str, list[int]] = {"paged": [], "window": [], "recurrent": []}
     for li, spec in enumerate(cfg.layers()):
         out[_MIXER_GROUP[spec.mixer]].append(li)
-    return {k: tuple(v) for k, v in out.items()}
+    groups = {k: tuple(v) for k, v in out.items()}
+    groups["cross"] = tuple(range(cfg.n_layers)) if cfg.n_enc_layers else ()
+    return groups
 
 
 def prefix_sharable_reason(cfg: ModelConfig) -> Optional[str]:
@@ -249,22 +285,30 @@ def init_paged_caches(cfg: ModelConfig, n_slots: int, n_pages: int,
     a ``[n_pages, block_size, kv_lora_rank]`` latent pool and a
     ``[n_pages, block_size, qk_rope_dim]`` RoPE-key pool, per SSD or
     RG-LRU layer slot-stacked recurrent state ``[repeats, n_slots, ...]``
-    (one lane per slot, no blocks)."""
+    (one lane per slot, no blocks), and per enc-dec decoder layer an
+    ``xattn`` K/V pool pair addressed through per-slot static cross tables
+    (written once at admission, never extended)."""
     _check_supported(cfg)
     device = resolve_device(device)
 
     def leaf(spec: LayerSpec) -> dict:
         if spec.mixer == "ssd":
-            return {"ssd": ssm.init_ssd_cache(cfg, n_slots, dtype, device)}
-        if spec.mixer == "rglru":
-            return {"rglru": rglru.init_rglru_cache(cfg, n_slots, dtype,
-                                                    device)}
-        if spec.mixer == "mla":
-            return {"mla": mla.init_paged_mla_cache(cfg, n_pages, block_size,
-                                                    dtype, device)}
-        return {"attn": blocks.init_paged_attn_cache(cfg, n_pages,
-                                                     block_size, dtype,
-                                                     device)}
+            c = {"ssd": ssm.init_ssd_cache(cfg, n_slots, dtype, device)}
+        elif spec.mixer == "rglru":
+            c = {"rglru": rglru.init_rglru_cache(cfg, n_slots, dtype,
+                                                 device)}
+        elif spec.mixer == "mla":
+            c = {"mla": mla.init_paged_mla_cache(cfg, n_pages, block_size,
+                                                 dtype, device)}
+        else:
+            c = {"attn": blocks.init_paged_attn_cache(cfg, n_pages,
+                                                      block_size, dtype,
+                                                      device)}
+        if cfg.n_enc_layers:
+            c["xattn"] = blocks.init_paged_attn_cache(cfg, n_pages,
+                                                      block_size, dtype,
+                                                      device)
+        return c
 
     return {f"seg{si}": {
         f"c{ci}": {k: _stacked(v, seg.repeats)
@@ -282,8 +326,9 @@ def _cache_entries(cfg: ModelConfig, caches: dict):
 def paged_cache_leaves(cfg: ModelConfig, caches: dict) -> list[tuple]:
     """(group, (a_key, b_key), leaf) for every physical pool leaf, in a
     fixed order: group "global" for global attention and MLA latents,
-    "window" for sliding-window attention; the engine binds one
-    ``PagedKVStore`` per leaf, tagged with its group.  Recurrent state
+    "window" for sliding-window attention, "cross" for an enc-dec layer's
+    cross K/V (after its layer's self-attention leaf); the engine binds
+    one ``PagedKVStore`` per leaf, tagged with its group.  Recurrent state
     leaves are not listed (see ``state_cache_leaves``)."""
     out = []
     for spec, entry in _cache_entries(cfg, caches):
@@ -293,6 +338,8 @@ def paged_cache_leaves(cfg: ModelConfig, caches: dict) -> list[tuple]:
         elif spec.mixer == "mla":
             out.append(("global", ("ckv_pages", "krope_pages"),
                         entry["mla"]))
+        if "xattn" in entry:
+            out.append(("cross", ("k_pages", "v_pages"), entry["xattn"]))
     return out
 
 
@@ -432,7 +479,9 @@ def insert_paged_prompt(cfg: ModelConfig, caches: dict, single: dict,
     whose position is
     -1, or whose block the table does not cover, as behind a window ring,
     go to the null page); SSD and RG-LRU conv tail and state go into lane
-    ``slot``.  Other lanes are untouched.
+    ``slot``; an enc-dec layer's cross K/V rows go to the lane's static
+    cross block set (``tables["cross"]``) at positions ``0..F-1``.  Other
+    lanes are untouched.
 
     ``skip_below`` masks the attention writes below that position (their
     position becomes -1, so they land on the null page): on a prefix-cache
@@ -441,6 +490,9 @@ def insert_paged_prompt(cfg: ModelConfig, caches: dict, single: dict,
     them.  Returns ``caches``."""
     for (spec, entry), (_, one) in zip(_cache_entries(cfg, caches),
                                        _cache_entries(cfg, single)):
+        if "xattn" in entry:
+            _insert_cross_leaf(entry["xattn"], one["xattn"], tables["cross"],
+                               block_size, null_block)
         if spec.mixer in _STATE_MIXERS:
             _scatter_state(entry[spec.mixer], one[spec.mixer], slot)
             continue
@@ -458,6 +510,73 @@ def insert_paged_prompt(cfg: ModelConfig, caches: dict, single: dict,
             _scatter_rows(leaf[pool], row, cpos, rows[:, 0],
                           block_size=block_size, null_block=null_block)
     return caches
+
+
+def _insert_cross_leaf(leaf: dict, one: dict, row, block_size: int,
+                       null_block: int) -> None:
+    """A batch-1 cross K/V leaf (``{"k", "v": [repeats, 1, F, KV, hd]}``)
+    into a cross pool pair through the lane's static cross table row, at
+    positions ``0..F-1``, in place."""
+    fpos = torch.arange(one["k"].shape[2], dtype=torch.int32,
+                        device=row.device)
+    for pool, key in (("k_pages", "k"), ("v_pages", "v")):
+        _scatter_rows(leaf[pool], row, fpos, one[key][:, 0],
+                      block_size=block_size, null_block=null_block)
+
+
+def encode_cross_single(cfg: ModelConfig, params: dict,
+                        frontend_emb: torch.Tensor) -> dict:
+    """Encode at admission (chunked prefill): run the encoder once over one
+    request's frame embeddings ([1, F, frontend_dim]) and project every
+    decoder layer's cross K/V.  Returns the dense single-request cache tree
+    restricted to its ``xattn`` leaves (``{"k", "v": [repeats, 1, F, KV,
+    hd]}``), which ``insert_cross_rows`` scatters into the lane's static
+    cross block set."""
+    enc_out = _encode(cfg, params, frontend_emb)
+    out: dict = {}
+    for si, seg in enumerate(cfg.segments()):
+        seg_p = params[f"seg{si}"]
+        out[f"seg{si}"] = {}
+        for ci in range(len(seg.cycle)):
+            xp = seg_p[f"c{ci}"]["xattn"]
+            kv = [_cross_kv(cfg, _index(xp, r), enc_out)
+                  for r in range(seg.repeats)]
+            out[f"seg{si}"][f"c{ci}"] = {"xattn": {
+                "k": torch.stack([k for k, _ in kv]),
+                "v": torch.stack([v for _, v in kv])}}
+    return out
+
+
+def insert_cross_rows(cfg: ModelConfig, caches: dict, cross_single: dict,
+                      row: torch.Tensor, *, block_size: int,
+                      null_block: int) -> dict:
+    """Scatter one request's projected cross K/V rows
+    (``encode_cross_single``) into the cross pools through its static cross
+    table row [W], in place.  Returns ``caches``."""
+    for (_, entry), (_, one) in zip(_cache_entries(cfg, caches),
+                                    _cache_entries(cfg, cross_single)):
+        _insert_cross_leaf(entry["xattn"], one["xattn"], row, block_size,
+                           null_block)
+    return caches
+
+
+def embed_prompt_rows(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                      frontend_emb: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """One request's decoder input rows as ``forward`` embeds them: token
+    embeddings (emb-scaled), after the projected frontend rows for a
+    modality-frontend arch.  ``tokens``: [S]; ``frontend_emb``: [F,
+    frontend_dim].  Returns [F + S, d_model] ([S, d_model] otherwise):
+    chunked prefill slices these rows, so a chunk may straddle the
+    frontend/token boundary."""
+    h = embed_tokens(cfg, params, tokens)
+    if cfg.prepended_rows:
+        if frontend_emb is None:
+            raise ValueError(f"{cfg.name}: a modality-frontend prompt needs "
+                             "frontend_emb")
+        fe = frontend_emb.to(h.dtype) @ params["frontend_proj"]
+        h = torch.cat([fe, h], dim=0)
+    return h
 
 
 def copy_paged_block(cfg: ModelConfig, caches: dict, src: int,
@@ -487,15 +606,100 @@ def _index(tree: dict, r: int) -> dict:
             for k, v in tree.items()}
 
 
+def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+    """Token embeddings, times sqrt(d_model) where the config says so."""
+    h = params["embed"][tokens.long()]
+    if cfg.emb_scale:
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
+    return h
+
+
+def _cross_kv(cfg: ModelConfig, xp: dict, enc_out: torch.Tensor) -> tuple:
+    """One decoder layer's cross K/V [B, F, KV, hd] projected from the
+    encoder's output [B, F, d_model] (no RoPE)."""
+    he = rms_norm(enc_out, xp["ln"], cfg.norm_eps)
+    B, F, _ = he.shape
+    shape = (B, F, cfg.n_kv_heads, cfg.head_dim)
+    return (he @ xp["wk"]).reshape(shape), (he @ xp["wv"]).reshape(shape)
+
+
+def _encode(cfg: ModelConfig, params: dict,
+            frontend_emb: torch.Tensor) -> torch.Tensor:
+    """The bidirectional encoder (non-causal self-attention with RoPE, then
+    the FFN, per layer) over stub frame embeddings [B, F, frontend_dim];
+    returns [B, F, d_model].  Its attention is the plain one whatever the
+    caller's ``impl``, as the reference runs its own plain (``chunked``)
+    attention here."""
+    enc_p = params["enc_frontend"]
+    he = frontend_emb.to(enc_p.dtype) @ enc_p
+    B, F = he.shape[0], he.shape[1]
+    e_pos = torch.arange(F, dtype=torch.int32, device=he.device)
+    for r in range(cfg.n_enc_layers):
+        pa = _index(params["enc"]["attn"], r)
+        hn = rms_norm(he, pa["ln"], cfg.norm_eps)
+        q = (hn @ pa["wq"]).reshape(B, F, cfg.n_heads, cfg.head_dim)
+        k = (hn @ pa["wk"]).reshape(B, F, cfg.n_kv_heads, cfg.head_dim)
+        v = (hn @ pa["wv"]).reshape(B, F, cfg.n_kv_heads, cfg.head_dim)
+        q = blocks.apply_rope(q, e_pos, cfg.rope_theta)
+        k = blocks.apply_rope(k, e_pos, cfg.rope_theta)
+        o = blocks.attention(q, k, v, q_positions=e_pos, k_positions=e_pos,
+                             causal=False, impl="plain")
+        he = he + o.reshape(B, F, cfg.q_dim) @ pa["wo"]
+        he = blocks.ffn_layer(cfg, _index(params["enc"]["ffn"], r), he)
+    return rms_norm(he, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _cross_attend(cfg: ModelConfig, p: dict, h, *, positions,
+                  cache: Optional[dict], enc_out, cross_tables, impl: str):
+    """An enc-dec decoder layer's cross attention (non-causal, no RoPE)
+    over one of three K/V sources, as the reference's ``_apply_layer``
+    picks them: the lane's static cross block set gathered through
+    ``cross_tables`` [B, W] (rows past F, on the null page, take position
+    -1 and add exact zeros); K/V projected from ``enc_out``, also written
+    into a dense cache's ``xattn`` leaf; or that leaf, cached."""
+    F = cfg.frontend_tokens
+    xc = cache.get("xattn") if cache else None
+    k_pos = None
+    if xc is not None and "k_pages" in xc:
+        if cross_tables is None:
+            raise ValueError("paged cross K/V needs cross tables")
+        kp, vp = xc["k_pages"], xc["v_pages"]
+        B_l, W = cross_tables.shape
+        Lc = W * kp.shape[1]
+        idx = cross_tables.long()
+        xk = kp[idx].reshape((B_l, Lc) + tuple(kp.shape[2:]))
+        xv = vp[idx].reshape((B_l, Lc) + tuple(vp.shape[2:]))
+        j = torch.arange(Lc, dtype=torch.int32, device=h.device)
+        k_pos = torch.where(j < F, j, -1).to(torch.int32)
+    elif enc_out is not None:
+        xk, xv = _cross_kv(cfg, p, enc_out)
+        if xc is not None:
+            xc["k"].copy_(xk)
+            xc["v"].copy_(xv)
+    elif xc is not None:
+        xk, xv = xc["k"], xc["v"]
+    else:
+        raise ValueError(f"{cfg.name}: enc-dec cross attention needs "
+                         "frontend_emb or a populated cross K/V cache")
+    if k_pos is None:
+        k_pos = torch.arange(xk.shape[1], dtype=torch.int32,
+                             device=h.device)
+    h, _ = blocks.attn_layer(cfg, p, h, local=False, positions=positions,
+                             impl=impl, kv_override=(xk, xv, k_pos))
+    return h
+
+
 def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, h, *,
                  positions, cache: Optional[dict], impl: str,
                  paged_tables=None, window_tables=None, key: tuple = (),
                  state_sink: Optional[StateSink] = None, valid_len=None,
-                 moe_kw: Optional[dict] = None):
+                 moe_kw: Optional[dict] = None, enc_out=None,
+                 cross_tables=None):
     """One layer (global or sliding-window attention, MLA, SSD or RG-LRU,
-    then its dense or MoE FFN); returns the new residual.  ``moe_kw``: the
-    MoE layer's ``capacity_factor`` and ``lossless``; its aux loss is
-    dropped (train mode refuses MoE configs)."""
+    then an enc-dec layer's cross attention, then its dense or MoE FFN);
+    returns the new residual.  ``moe_kw``: the MoE layer's
+    ``capacity_factor`` and ``lossless``; its aux loss is dropped (train
+    mode refuses MoE configs)."""
     if spec.mixer in _STATE_MIXERS:
         layer = ssm.ssd_layer if spec.mixer == "ssd" else rglru.rglru_layer
         sc = cache[spec.mixer] if cache else None
@@ -520,6 +724,10 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, h, *,
                                  paged_tables=(window_tables if local
                                                else paged_tables),
                                  valid_len=valid_len)
+    if "xattn" in p:
+        h = _cross_attend(cfg, p["xattn"], h, positions=positions,
+                          cache=cache, enc_out=enc_out,
+                          cross_tables=cross_tables, impl=impl)
     if spec.ffn == "dense":
         h = blocks.ffn_layer(cfg, p["ffn"], h)
     elif spec.ffn == "moe":
@@ -532,7 +740,8 @@ def _run_segment(cfg: ModelConfig, si: int, seg: Segment, seg_p: dict, h,
                  window_tables=None,
                  state_sink: Optional[StateSink] = None, valid_len=None,
                  remat: bool = False, repeats: Optional[int] = None,
-                 moe_kw: Optional[dict] = None):
+                 moe_kw: Optional[dict] = None, enc_out=None,
+                 cross_tables=None):
     """The segment's first ``repeats`` repeats (default all) in order; the
     others, and their cache rows, are left alone.  ``remat``: each repeat's
     activations are recomputed in the backward pass instead of kept, as
@@ -546,7 +755,8 @@ def _run_segment(cfg: ModelConfig, si: int, seg: Segment, seg_p: dict, h,
                                  paged_tables=paged_tables,
                                  window_tables=window_tables,
                                  key=(si, ci, r), state_sink=state_sink,
-                                 valid_len=valid_len, moe_kw=moe_kw)
+                                 valid_len=valid_len, moe_kw=moe_kw,
+                                 enc_out=enc_out, cross_tables=cross_tables)
             return h
 
         h = (checkpoint(body, h, use_reentrant=False,
@@ -554,12 +764,16 @@ def _run_segment(cfg: ModelConfig, si: int, seg: Segment, seg_p: dict, h,
     return h
 
 
-def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+def forward(cfg: ModelConfig, params: dict,
+            tokens: Optional[torch.Tensor], *,
             positions: Optional[torch.Tensor] = None,
+            frontend_emb: Optional[torch.Tensor] = None,
+            input_embeds: Optional[torch.Tensor] = None,
             cache: Optional[dict] = None, mode: str = "prefill",
             impl: str = "kernel",
             paged_tables: Optional[torch.Tensor] = None,
             window_tables: Optional[torch.Tensor] = None,
+            cross_tables: Optional[torch.Tensor] = None,
             state_sink: Optional[StateSink] = None,
             valid_len: Optional[int] = None,
             remat: Optional[bool] = None,
@@ -569,7 +783,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     """Returns (logits [B, S, padded_vocab], cache).
 
     tokens: [B, S] (decode: [B, 1]).  positions: [S] int32 absolute
-    positions (default ``arange(S)``); decode: a 0-d tensor with a dense
+    positions (default ``arange`` over the decoder sequence, a modality
+    frontend's rows first); decode: a 0-d tensor with a dense
     cache, or [B] per-lane positions with a paged cache from
     ``init_paged_caches`` and its ``paged_tables`` [B, max_blocks] (global
     layers) and ``window_tables`` [B, max_blocks] (sliding-window layers:
@@ -578,6 +793,17 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     leaves)``, when given, receives each recurrent layer's new decode state
     instead of the cache (``key`` = (segment, cycle entry, repeat)): a
     paged decode step passes it on to ``freeze_state_lanes``.
+
+    ``frontend_emb`` [B, F, frontend_dim] (prefill and train): a
+    modality-frontend arch projects it and prepends the F rows to the
+    token rows; an enc-dec arch runs the encoder over it, and each decoder
+    layer cross-attends to the encoder's output (and writes its cross K/V
+    into a dense cache's ``xattn`` leaves).  Decode reads cached cross
+    K/V, or with a paged cache the lanes' static cross block sets through
+    ``cross_tables`` [B, W]; an enc-dec prefill without ``frontend_emb``
+    must carry ``cross_tables`` (the serving chunk path), anything else
+    raises.  ``input_embeds`` [B, S, d_model] replaces the embedding
+    lookup (``embed_prompt_rows`` slices; ``tokens`` is then ignored).
 
     Paged chunk prefill: tokens [1, C], positions the chunk's [C] rows,
     ``paged_tables``/``window_tables`` the lane's [1, max_blocks] rows and
@@ -629,10 +855,28 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     if moe_lossless is None:
         moe_lossless = mode == "decode"
     moe_kw = {"capacity_factor": capacity_factor, "lossless": moe_lossless}
-    S = tokens.shape[1]
-    h = params["embed"][tokens.long()]
-    if cfg.emb_scale:
-        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
+    decode = mode == "decode"
+    enc_out = None
+    if cfg.n_enc_layers and not decode:
+        if frontend_emb is not None:
+            enc_out = _encode(cfg, params, frontend_emb)
+        elif cross_tables is None:
+            # only the serving chunk path, which reads the cross block
+            # set, may prefill without the encoder: anything else would
+            # cross-attend to a zeroed cache
+            raise ValueError(f"{cfg.name}: enc-dec train/prefill needs "
+                             "frontend_emb")
+    if input_embeds is not None:
+        h = input_embeds
+    else:
+        h = embed_tokens(cfg, params, tokens)
+        if cfg.prepended_rows and not decode:
+            if frontend_emb is None:
+                raise ValueError(f"{cfg.name}: a modality-frontend prefill "
+                                 "needs frontend_emb")
+            fe = frontend_emb.to(h.dtype) @ params["frontend_proj"]
+            h = torch.cat([fe, h], dim=1)
+    S = h.shape[1]
     if positions is None:
         positions = (torch.arange(S, dtype=torch.int32, device=h.device)
                      if mode != "decode"
@@ -652,7 +896,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                          impl=impl, paged_tables=paged_tables,
                          window_tables=window_tables,
                          state_sink=state_sink, valid_len=valid_len,
-                         remat=remat, repeats=repeats, moe_kw=moe_kw)
+                         remat=remat, repeats=repeats, moe_kw=moe_kw,
+                         enc_out=enc_out, cross_tables=cross_tables)
 
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]

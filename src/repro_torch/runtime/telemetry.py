@@ -71,7 +71,8 @@ class ServeStep:
     new_tokens: int = 0          # decode tokens emitted
     resident_bytes: int = 0
     capacity_bytes: int = 0
-    # residency by cache group: {"global"/"window"/"recurrent": bytes}
+    # residency by cache group: {"global"/"window"/"recurrent"/"cross":
+    # bytes}; an enc-dec lane's cross entry is flat for its whole run
     resident_by_group: dict = field(default_factory=dict)
     prefill_seconds: float = 0.0  # admissions, whole prefills, chunks
     decode_seconds: float = 0.0   # the batched step, or the rounds
@@ -225,10 +226,11 @@ class ServeTelemetry:
         return self._peak_resident_bytes
 
     def peak_resident_bytes_by_group(self) -> dict:
-        """Peak residency per cache group ({"global"/"window"/"recurrent"}
-        -> bytes); the window entry is bounded by n_slots rings at their
-        cap and the recurrent entry by n_slots state slots, whatever the
-        generated length."""
+        """Peak residency per cache group
+        ({"global"/"window"/"recurrent"/"cross"} -> bytes); the window
+        entry is bounded by n_slots rings at their cap, the recurrent entry
+        by n_slots state slots and the cross entry by n_slots static cross
+        block sets, whatever the generated length."""
         return dict(self._peak_group_bytes)
 
     def max_concurrency(self) -> int:

@@ -1,9 +1,9 @@
 """Block (paged) KV cache of the continuous-batching engine: the host-side
 ``BlockAllocator`` and the physical ``PagedKVStore``.
 
-The port's copy of the global-attention, sliding-window and
-recurrent-state parts of ``repro.serve.cache``, with the chunked-prefill
-ring layout (``CacheLayout.prefill_chunk``).  Cache memory is divided
+The port's copy of ``repro.serve.cache``: global attention,
+sliding-window rings, recurrent state slots and enc-dec cross block sets,
+with the chunked-prefill ring layout (``CacheLayout.prefill_chunk``).  Cache memory is divided
 into blocks of ``block_size`` tokens; each admitted request owns a
 per-slot block table that grows one block at a time as it decodes, and
 every block returns to the free list when the request finishes.  A model
@@ -18,7 +18,13 @@ reservation (lazy pricing) grows as it goes and can meet
 past its rejected rows (``truncate``, ``truncate_window``).  A model with
 recurrent (SSD, RG-LRU) layers also holds one state slot per live request
 (its lane's O(1) state slabs), accounted apart from the blocks; a model
-with no attention layer holds no blocks at all (``CacheLayout``).
+with no attention layer holds no blocks at all (``CacheLayout``).  An
+enc-dec model's requests each hold a static cross block set, sized for
+the encoder's ``frontend_tokens`` rows, claimed whole at admission (and
+priced there), never extended, and freed at retirement; a modality
+frontend's rows share the global table, so ``frontend_extra`` widens every
+admission's global and window price and the per-slot ledger counts
+physical rows.
 
 Prefix cache (``CacheLayout.sharable``): global-group blocks are
 content-addressed.  Each full prompt block is named by a hash chain
@@ -88,8 +94,7 @@ class CacheConfig:
 @dataclass(frozen=True)
 class CacheLayout:
     """Which cache groups a model's layers need, in allocator terms: the
-    reference's ``CacheLayout`` less the groups the port does not serve
-    yet.  Built by the engine from ``models.lm.serve_groups`` and installed
+    reference's ``CacheLayout``, field for field.  Built by the engine from ``models.lm.serve_groups`` and installed
     with ``BlockAllocator.set_layout``; the default is the global-only
     regime.  ``window`` is the sliding-window width (0 = no window group)
     and ``window_cap_blocks`` the admission price of one ring: the most
@@ -97,8 +102,12 @@ class CacheLayout:
     describe the recurrent lanes (0 slots = no recurrent group).
     ``prefill_chunk`` (chunked prefill): window rings start at block 0 and
     slide forward with the chunks, and the cap counts the in-flight
-    chunk's blocks.  ``sharable`` turns on the content-addressed prefix
-    cache over the global group (the engine sets it only when
+    chunk's blocks.  ``cross_tokens``/``cross_cap_blocks`` describe the
+    enc-dec static cross block set (0 tokens = no cross group);
+    ``frontend_extra`` is the modality-frontend rows every admission
+    holds in the global and window groups on top of its tokens.
+    ``sharable`` turns on the content-addressed prefix cache over the
+    global group (the engine sets it only when
     ``models.lm.prefix_sharable_reason`` is None)."""
 
     has_global: bool = True
@@ -107,6 +116,9 @@ class CacheLayout:
     state_slots: int = 0
     state_bytes_per_slot: int = 0
     prefill_chunk: int = 0
+    cross_tokens: int = 0
+    cross_cap_blocks: int = 0
+    frontend_extra: int = 0
     sharable: bool = False
 
 
@@ -183,8 +195,10 @@ class PagedKVStore:
 class BlockAllocator:
     """Free-list block allocator with one growing block table per slot
     (``tables``), a window block ring per slot when the layout has a
-    window group (``window_tables``: logical block -> physical block), and
-    a state slot per live request when it has a recurrent group.
+    window group (``window_tables``: logical block -> physical block), a
+    static cross block set per slot when it has a cross group
+    (``cross_tables``), and a state slot per live request when it has a
+    recurrent group.
 
     Every global-table entry is refcounted: with a sharable layout one
     physical block may back several slots' tables and outlive them all in
@@ -209,6 +223,8 @@ class BlockAllocator:
         self.tables: dict[int, list[int]] = {}     # slot -> block ids
         # slot -> {logical block index: physical block} window ring
         self.window_tables: dict[int, dict[int, int]] = {}
+        # slot -> static cross block set (fixed length, never extended)
+        self.cross_tables: dict[int, list[int]] = {}
         self._tokens: dict[int, int] = {}          # slot -> resident tokens
         self._reserve: dict[int, int] = {}         # slot -> reserved blocks
         # prefix cache and refcounts (global group only)
@@ -233,8 +249,8 @@ class BlockAllocator:
 
     def set_layout(self, layout: CacheLayout) -> None:
         """Install the engine's cache-group layout (before any admission)."""
-        if self.tables or self.window_tables or self._state_slots or \
-                self._cached:
+        if self.tables or self.window_tables or self.cross_tables or \
+                self._state_slots or self._cached:
             raise ValueError("cannot change layout with live allocations "
                              "or cached prefix blocks")
         self.layout = layout
@@ -271,14 +287,19 @@ class BlockAllocator:
     def blocks_needed(self, n_tokens: int,
                       reserve_tokens: Optional[int] = None) -> int:
         """Admission price of ``n_tokens``, or of the worst case
-        ``reserve_tokens`` when that is larger: a global table grows with
-        the context; a window ring is capped at ``window_cap_blocks``
-        whatever the length."""
-        n = max(n_tokens, reserve_tokens or 0)
+        ``reserve_tokens`` when that is larger, in physical rows (a
+        modality frontend's ``frontend_extra`` rows added): a global table
+        grows with the context; a window ring is capped at
+        ``window_cap_blocks`` whatever the length; a cross block set costs
+        its whole static size up front, so that an enc-dec request is
+        never admitted without room for all of its cross K/V."""
+        n = max(n_tokens, reserve_tokens or 0) + self.layout.frontend_extra
         need = self._global_blocks(n)
         if self.layout.window:
             need += min(self.config.blocks_for(n),
                         self.layout.window_cap_blocks)
+        if self.layout.cross_tokens:
+            need += self.layout.cross_cap_blocks
         return need
 
     def outstanding_blocks(self) -> int:
@@ -366,7 +387,11 @@ class BlockAllocator:
         ``n_tokens`` (prompt + first generated token); with
         ``reserve_tokens`` also reserve blocks for its worst case (its
         ring at the cap); with a window group place its ring; with a
-        recurrent group also take the slot's state slot.  With a sharable
+        recurrent group also take the slot's state slot, and with a cross
+        group claim its whole cross block set.  The slot's token ledger
+        is physical: ``frontend_extra`` is added to ``n_tokens`` and
+        ``reserve_tokens``, so the engine's later ``extend`` calls pass
+        resident rows.  With a sharable
         layout, ``block_hashes`` (the prompt's chain) maps the longest
         indexed prefix read-only into the head of the table
         (``matched_tokens[slot]`` says how many tokens it covers) and only
@@ -382,7 +407,8 @@ class BlockAllocator:
                 f"for {n_tokens} tokens, {self.n_available()} available "
                 f"({self.n_free} allocatable, "
                 f"{self.outstanding_blocks()} reserved)")
-        need = self._global_blocks(n_tokens)
+        phys = n_tokens + self.layout.frontend_extra
+        need = self._global_blocks(phys)
         self.stats["admissions"] += 1
         table: list[int] = []
         if block_hashes and self._sharing():
@@ -404,15 +430,19 @@ class BlockAllocator:
             self._retain(block)
         table.extend(fresh)
         self.tables[slot] = table
-        self._tokens[slot] = n_tokens
+        self._tokens[slot] = phys
         self.matched_tokens[slot] = matched * self.config.block_size
         self._slot_hashes[slot] = tuple(block_hashes or ())
         if reserve_tokens is not None and self.layout.has_global:
-            self._reserve[slot] = self.config.blocks_for(reserve_tokens)
+            self._reserve[slot] = self.config.blocks_for(
+                reserve_tokens + self.layout.frontend_extra)
         if self.layout.window:
-            self._allocate_window(slot, n_tokens)
+            self._allocate_window(slot, phys)
             if reserve_tokens is not None:
                 self._reserve.setdefault(slot, 0)
+        if self.layout.cross_tokens:
+            self.cross_tables[slot] = self._claim(
+                self.layout.cross_cap_blocks, f"slot {slot} cross block set")
         if self.layout.state_slots:
             self._state_slots.add(slot)
         return list(table)
@@ -545,8 +575,9 @@ class BlockAllocator:
         are released (a block another slot references stays live, a
         committed one at refcount 0 parks in the cached pool, the rest
         return to the free list in table order, so the next claims reuse
-        them first), its ring's blocks are freed and its state slot is
-        let go.  Returns how many table and ring entries it gave up."""
+        them first), its ring's and its cross set's blocks are freed and
+        its state slot is let go.  Returns how many table, ring and cross
+        entries it gave up."""
         if slot not in self.tables:
             raise AllocatorInvariantError(f"slot {slot} has no allocation")
         blocks = self.tables.pop(slot)
@@ -561,6 +592,10 @@ class BlockAllocator:
             ring_blocks = [ring[i] for i in sorted(ring, reverse=True)]
             self._free.extend(ring_blocks)
             blocks = blocks + ring_blocks
+        cross = self.cross_tables.pop(slot, None)
+        if cross:
+            self._free.extend(reversed(cross))
+            blocks = blocks + cross
         self._state_slots.discard(slot)
         return len(blocks)
 
@@ -702,7 +737,9 @@ class BlockAllocator:
     # -- invariants --------------------------------------------------------------
     def check(self) -> None:
         """Refcounts equal the tables' references; every block is free,
-        cached, live or in exactly one ring; the index is a bijection onto
+        cached, live, in exactly one ring or in exactly one cross set (each
+        of a live slot, and of the layout's size); the index is a bijection
+        onto
         committed blocks, none of them free, and cached blocks are
         committed with refcount 0; each table covers exactly its slot's
         tokens, every ring belongs to a live slot and with a window group
@@ -722,11 +759,12 @@ class BlockAllocator:
                 f"(block: tables vs ledger): {diff}")
         window = [b for ring in self.window_tables.values()
                   for b in ring.values()]
+        cross = [b for t in self.cross_tables.values() for b in t]
         everything = self._free + list(self._cached) + list(self._ref) + \
-            window
+            window + cross
         if len(set(everything)) != len(everything):
             raise AllocatorInvariantError(
-                "a block is owned twice across free/cached/live/window")
+                "a block is owned twice across free/cached/live/window/cross")
         if sorted(everything) != list(range(self.config.n_blocks)):
             raise AllocatorInvariantError(
                 f"{self.config.n_blocks - len(everything)} blocks "
@@ -759,6 +797,20 @@ class BlockAllocator:
             raise AllocatorInvariantError(
                 "live slots without a window ring: "
                 f"{sorted(set(self.tables) - set(self.window_tables))}")
+        if set(self.cross_tables) - set(self.tables):
+            raise AllocatorInvariantError(
+                "cross block sets held by no live slot: "
+                f"{sorted(set(self.cross_tables) - set(self.tables))}")
+        for slot, t in self.cross_tables.items():
+            if len(t) != self.layout.cross_cap_blocks:
+                raise AllocatorInvariantError(
+                    f"slot {slot}: cross set of {len(t)} blocks, layout "
+                    f"has {self.layout.cross_cap_blocks}")
+        if self.layout.cross_tokens and set(self.cross_tables) != \
+                set(self.tables):
+            raise AllocatorInvariantError(
+                "live slots without a cross block set: "
+                f"{sorted(set(self.tables) - set(self.cross_tables))}")
         if set(self._reserve) - set(self.tables):
             raise AllocatorInvariantError("reservation without a table")
         if self.outstanding_blocks() > self.n_free:
@@ -788,6 +840,9 @@ class BlockAllocator:
         if self.window_tables:
             raise AllocatorInvariantError(
                 f"live window rings remain: {sorted(self.window_tables)}")
+        if self.cross_tables:
+            raise AllocatorInvariantError(
+                f"live cross block sets remain: {sorted(self.cross_tables)}")
         if self._state_slots:
             raise AllocatorInvariantError(
                 f"live state slots remain: {sorted(self._state_slots)}")
@@ -800,8 +855,8 @@ class BlockAllocator:
     # -- physical store ----------------------------------------------------------
     def attach_store(self, store: PagedKVStore,
                      group: str = "global") -> None:
-        """Bind a physical store whose blocks the ``group`` ("global" or
-        "window") tables address."""
+        """Bind a physical store whose blocks the ``group`` ("global",
+        "window" or "cross") tables address."""
         if store.config != self.config:
             raise ValueError("store geometry does not match allocator config")
         self.stores.append(store)
@@ -827,6 +882,16 @@ class BlockAllocator:
         null = self.config.null_block
         return [ring.get(i, null) for i in range(width)]
 
+    def padded_cross_table(self, slot: int, width: int) -> list[int]:
+        """``slot``'s static cross block set padded to ``width`` entries
+        with the null block; the set never grows, so its row is published
+        once per admission."""
+        table = self.cross_tables[slot]
+        if len(table) > width:
+            raise ValueError(
+                f"cross table of {len(table)} blocks exceeds width {width}")
+        return table + [self.config.null_block] * (width - len(table))
+
     def window_blocks_in_use(self) -> int:
         return sum(len(ring) for ring in self.window_tables.values())
 
@@ -837,13 +902,14 @@ class BlockAllocator:
 
     def resident_bytes_by_group(self) -> dict[str, int]:
         """Residency split by cache group, as the reference splits it:
-        ``"global"`` and ``"window"`` are each group's blocks in use times
-        the bytes per block of that group's stores (a group appears when it
-        has stores or blocks in use), ``"recurrent"`` state slots in use
-        times the layout's bytes per slot."""
+        ``"global"``, ``"window"`` and ``"cross"`` are each group's blocks
+        in use times the bytes per block of that group's stores (a group
+        appears when it has stores or blocks in use), ``"recurrent"`` state
+        slots in use times the layout's bytes per slot."""
         out: dict[str, int] = {}
         in_use = {"global": len(self._ref),
-                  "window": self.window_blocks_in_use()}
+                  "window": self.window_blocks_in_use(),
+                  "cross": sum(len(t) for t in self.cross_tables.values())}
         for group, n in in_use.items():
             block_bytes = sum(s.block_bytes for s, g in
                               zip(self.stores, self.store_groups)

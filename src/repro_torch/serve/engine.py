@@ -108,10 +108,13 @@ def _pick_token(row: torch.Tensor, sample_args) -> torch.Tensor:
 
 
 def make_prefill_step(cfg: ModelConfig, impl: str = "kernel"):
-    """prefill(params, cache, tokens [B, S], sample_args=None) ->
-    (next_tok [B], cache)."""
-    def prefill_step(params, cache, tokens, sample_args=None):
+    """prefill(params, cache, tokens [B, S], frontend_emb=None,
+    sample_args=None) -> (next_tok [B], cache); ``frontend_emb`` [B, F,
+    frontend_dim] for a modality-frontend or enc-dec arch."""
+    def prefill_step(params, cache, tokens, frontend_emb=None,
+                     sample_args=None):
         logits, cache = lm.forward(cfg, params, tokens, cache=cache,
+                                   frontend_emb=frontend_emb,
                                    mode="prefill", impl=impl,
                                    moe_lossless=True)
         return _pick_token(logits[:, -1, :cfg.vocab_size], sample_args), \
@@ -132,28 +135,34 @@ def make_serve_step(cfg: ModelConfig, impl: str = "kernel"):
 
 
 def make_bucketed_prefill_step(cfg: ModelConfig, impl: str = "kernel"):
-    """prefill(params, cache, tokens [B, Sb], true_len, sample_args=None)
-    -> (next_tok [B], cache).  The prompt is right-padded to a bucket
-    length Sb; causality makes the logits at ``true_len - 1`` exact,
-    ``valid_len=true_len`` freezes the recurrent state at the real prompt
-    (and keeps pad rows out of window rings), and the pad rows' cache
-    slots are marked empty (``lm.mask_cache_positions``), so decode never
-    attends them."""
-    def prefill_step(params, cache, tokens, true_len, sample_args=None):
+    """prefill(params, cache, tokens [B, Sb], true_len, frontend_emb=None,
+    sample_args=None) -> (next_tok [B], cache).  The prompt is
+    right-padded to a bucket length Sb; causality makes the logits at
+    ``true_len - 1`` exact, ``valid_len=true_len`` freezes the recurrent
+    state at the real prompt (and keeps pad rows out of window rings), and
+    the pad rows' cache slots are marked empty
+    (``lm.mask_cache_positions``), so decode never attends them.  A
+    modality frontend's F rows come first, so each of those boundaries
+    moves F rows on (the frontend rows are never padding)."""
+    F = cfg.prepended_rows
+
+    def prefill_step(params, cache, tokens, true_len, frontend_emb=None,
+                     sample_args=None):
         logits, cache = lm.forward(cfg, params, tokens, cache=cache,
+                                   frontend_emb=frontend_emb,
                                    mode="prefill", impl=impl,
-                                   valid_len=true_len, moe_lossless=True)
-        tok = _pick_token(logits[:, true_len - 1, :cfg.vocab_size],
+                                   valid_len=true_len + F, moe_lossless=True)
+        tok = _pick_token(logits[:, F + true_len - 1, :cfg.vocab_size],
                           sample_args)
-        return tok, lm.mask_cache_positions(cache, true_len)
+        return tok, lm.mask_cache_positions(cache, true_len + F)
     return prefill_step
 
 
 def make_chunk_prefill_step(cfg: ModelConfig, chunk: int,
                             impl: str = "kernel"):
     """chunk(params, caches, piece [1, C], start, rows {"global": [W],
-    "window": [W]}, last_idx, slot, valid, sample_args=None) ->
-    (candidate_tok [1], caches).
+    "window": [W], "cross": [Wc]}, last_idx, slot, valid,
+    sample_args=None) -> (candidate_tok [1], caches).
 
     One C-row slice of a prompt, straight against the paged tree: its rows
     are written through the lane's tables (global blocks, window ring),
@@ -163,27 +172,42 @@ def make_chunk_prefill_step(cfg: ModelConfig, chunk: int,
     only).  ``valid`` counts the slice's real rows: a final slice's pad
     rows freeze the recurrent state, and their K/V rows land past the
     lane's context (on the null page where the table does not reach),
-    where no query reads them."""
+    where no query reads them.  An enc-dec arch also cross-attends to the
+    lane's static cross block set, written at admission.
+
+    A modality-frontend arch's ``piece`` is a [1, C, d_model] slice of
+    the request's decoder input rows (``lm.embed_prompt_rows``), so a
+    chunk may straddle the frontend/token boundary."""
+    embeds = bool(cfg.prepended_rows)
+
     def chunk_step(params, caches, piece, start, rows, last_idx, slot,
                    valid, sample_args=None):
         positions = start + torch.arange(chunk, dtype=torch.int32,
                                          device=piece.device)
-        g_row, w_row = rows.get("global"), rows.get("window")
         logits, _ = lm.forward(
-            cfg, params, piece, positions=positions,
+            cfg, params, None if embeds else piece,
+            input_embeds=piece if embeds else None, positions=positions,
             cache=lm.lane_view(cfg, caches, slot), mode="prefill",
-            impl=impl, moe_lossless=True,
-            paged_tables=None if g_row is None else g_row[None],
-            window_tables=None if w_row is None else w_row[None],
-            valid_len=valid)
+            impl=impl, moe_lossless=True, valid_len=valid,
+            **_lane_tables(rows))
         return _pick_token(logits[:, last_idx, :cfg.vocab_size],
                            sample_args), caches
     return chunk_step
 
 
+def _lane_tables(rows: dict) -> dict:
+    """One lane's table rows ({group: [W]}) as ``lm.forward``'s table
+    arguments ([1, W] each, None for a group the model does not have)."""
+    return {arg: None if rows.get(g) is None else rows[g][None]
+            for arg, g in (("paged_tables", "global"),
+                           ("window_tables", "window"),
+                           ("cross_tables", "cross"))}
+
+
 def make_paged_decode_step(cfg: ModelConfig, impl: str = "kernel"):
     """decode(params, caches, toks [B], pos [B], tables {"global": [B, W],
-    "window": [B, W]} (each present when the model has such layers),
+    "window": [B, W], "cross": [B, Wc]} (each present when the model has
+    such layers),
     active [B] bool, sample_args=None) -> (next_toks [B], caches).  One
     batched step over every lane; each lane writes its row through its
     table (inactive lanes hold null rows, so their writes land in the
@@ -205,6 +229,7 @@ def make_paged_decode_step(cfg: ModelConfig, impl: str = "kernel"):
                                     moe_lossless=True,
                                     paged_tables=tables.get("global"),
                                     window_tables=tables.get("window"),
+                                    cross_tables=tables.get("cross"),
                                     state_sink=freeze)
         row = logits[:, -1, :cfg.vocab_size]
         if sample_args is None:
@@ -232,14 +257,10 @@ def make_draft_decode_step(cfg: ModelConfig, draft_layers: int,
     port's round draws its drafts' noise at once and skips the sampler on
     a greedy lane)."""
     def draft_step(params, caches, tok, pos, rows, slot):
-        g_row, w_row = rows.get("global"), rows.get("window")
         logits, _ = lm.forward(
             cfg, params, tok.reshape(1, 1), positions=pos.reshape(1),
             cache=lm.lane_view(cfg, caches, slot), mode="decode", impl=impl,
-            moe_lossless=True,
-            paged_tables=None if g_row is None else g_row[None],
-            window_tables=None if w_row is None else w_row[None],
-            layer_cap=draft_layers)
+            moe_lossless=True, layer_cap=draft_layers, **_lane_tables(rows))
         return logits[0, -1, :cfg.vocab_size], caches
     return draft_step
 
@@ -254,18 +275,22 @@ def make_verify_step(cfg: ModelConfig, width: int, impl: str = "kernel"):
     the full model's distribution for draft slot i (row k the bonus
     token).  ``valid = k + 1`` masks the pad tail: recurrent state freezes
     past it, and pad-row K/V writes land past the lane's position, where
-    the per-query causal mask keeps them unread until overwritten."""
+    the per-query causal mask keeps them unread until overwritten.  A
+    modality-frontend arch's rows are embedded here (its frontend rows
+    are long resident), as ``forward``'s own token branch embeds them."""
+    use_embeds = bool(cfg.prepended_rows)
+
     def verify_step(params, caches, toks, start, rows, slot, valid):
         positions = start + torch.arange(width, dtype=torch.int32,
                                          device=toks.device)
-        g_row, w_row = rows.get("global"), rows.get("window")
+        embeds = (lm.embed_tokens(cfg, params, toks)[None] if use_embeds
+                  else None)
         logits, _ = lm.forward(
-            cfg, params, toks[None], positions=positions,
+            cfg, params, None if use_embeds else toks[None],
+            input_embeds=embeds, positions=positions,
             cache=lm.lane_view(cfg, caches, slot), mode="prefill",
-            impl=impl, moe_lossless=True,
-            paged_tables=None if g_row is None else g_row[None],
-            window_tables=None if w_row is None else w_row[None],
-            valid_len=valid)
+            impl=impl, moe_lossless=True, valid_len=valid,
+            **_lane_tables(rows))
         return logits[0, :, :cfg.vocab_size], caches
     return verify_step
 
@@ -295,17 +320,25 @@ class Engine:
         self._decode = make_serve_step(self.cfg, self.impl)
 
     @torch.no_grad()
-    def generate(self, prompts, max_new_tokens: int) -> torch.Tensor:
+    def generate(self, prompts, max_new_tokens: int,
+                 frontend_emb=None) -> torch.Tensor:
         """prompts: [B, S] token ids -> [B, max_new_tokens] int32 tokens
-        (the prefill's token first)."""
+        (the prefill's token first).  ``frontend_emb`` [B, F,
+        frontend_dim]: a modality-frontend or enc-dec arch's embeddings (a
+        modality frontend's F rows come first in the cache, which holds
+        ``kv_len + F`` rows)."""
         prompts = torch.as_tensor(prompts, device=self.device)
+        if frontend_emb is not None:
+            frontend_emb = torch.as_tensor(frontend_emb, device=self.device)
         B, S = prompts.shape
-        cache = lm.init_cache(self.cfg, B, self.kv_len, self.dtype,
+        F = self.cfg.prepended_rows
+        cache = lm.init_cache(self.cfg, B, self.kv_len + F, self.dtype,
                               self.device)
-        tok, cache = self._prefill(self.params, cache, prompts)
+        tok, cache = self._prefill(self.params, cache, prompts, frontend_emb)
         out = [tok]
         for t in range(max_new_tokens - 1):
-            pos = torch.full((), S + t, dtype=torch.int32, device=self.device)
+            pos = torch.full((), S + F + t, dtype=torch.int32,
+                             device=self.device)
             tok, cache = self._decode(self.params, cache, tok[:, None], pos)
             out.append(tok)
         return torch.stack(out, dim=1)
@@ -425,17 +458,23 @@ class ContinuousEngine:
         self._has_global = bool(groups["paged"])
         self._has_window = bool(groups["window"])
         self._has_state = bool(groups["recurrent"])
+        self._has_cross = bool(groups["cross"])
+        # a modality frontend's projected rows share the decoder's cache:
+        # every lane holds F rows ahead of its prompt (an enc-dec arch's
+        # frames live in the cross block set instead)
+        self._frontend_extra = self.cfg.prepended_rows
+        self._kv_total = self.kv_len + self._frontend_extra
         if self.paged:
             self._init_paged()
         else:
             # dense lanes: the allocator only accounts, a block per
-            # block_size rows of a lane
-            n_blocks = self.n_slots * -(-self.kv_len // self.block_size)
+            # block_size physical rows of a lane
+            n_blocks = self.n_slots * -(-self._kv_total // self.block_size)
             self.allocator = BlockAllocator(CacheConfig(
                 block_size=self.block_size,
                 n_blocks=self.cache_blocks or n_blocks))
             self._caches = lm.init_slot_caches(self.cfg, self.n_slots,
-                                               self.kv_len, self.dtype,
+                                               self._kv_total, self.dtype,
                                                self.device)
             self._decode = make_serve_step(self.cfg, self.impl)
         self.scheduler = SlotScheduler(self.n_slots, self.allocator,
@@ -480,22 +519,25 @@ class ContinuousEngine:
         return self.decode_shape_for(self.kv_len, self.n_slots)
 
     def _init_paged(self) -> None:
-        """Page pools, per-group block tables, recurrent state slabs and
-        the stores bound to the allocator."""
+        """Page pools, per-group block tables, recurrent state slabs,
+        static cross block sets and the stores bound to the allocator."""
         has_blocks = self._has_global or self._has_window
-        if has_blocks and self.kv_len % self.block_size:
+        if has_blocks and self._kv_total % self.block_size:
             raise ValueError(
-                f"paged mode needs kv_len ({self.kv_len}) divisible by "
-                f"block_size ({self.block_size}) so the gathered KV view "
-                "matches the dense oracle's shape (token identity)")
+                f"paged mode needs kv_len + frontend rows ({self._kv_total})"
+                f" divisible by block_size ({self.block_size}) so the "
+                "gathered KV view matches the dense oracle's shape (token "
+                "identity)")
         # a published table (global or window ring) spans the full context
-        self._max_blocks = (self.kv_len // self.block_size if has_blocks
+        self._max_blocks = (self._kv_total // self.block_size if has_blocks
                             else 0)
+        self._cross_width = (-(-self.cfg.frontend_tokens // self.block_size)
+                             if self._has_cross else 0)
         # per-slot block budget: a global table grows to the full context;
-        # a window ring is capped at O(window) blocks; recurrent layers
-        # hold state slots, no blocks
+        # a window ring is capped at O(window) blocks; a cross block set is
+        # its static size; recurrent layers hold state slots, no blocks
         per_slot = (self._max_blocks if self._has_global else 0) + \
-            self._window_cap_blocks()
+            self._window_cap_blocks() + self._cross_width
         cache_cfg = CacheConfig(
             block_size=self.block_size,
             n_blocks=(self.cache_blocks if self.cache_blocks is not None
@@ -510,21 +552,29 @@ class ContinuousEngine:
                 cache_cfg, leaf[keys[0]], leaf[keys[1]]), group=group)
         self.allocator.set_layout(CacheLayout(
             has_global=self._has_global,
-            window=(min(self.kv_len, self.cfg.window_size)
+            window=(min(self._kv_total, self.cfg.window_size)
                     if self._has_window else 0),
             window_cap_blocks=self._window_cap_blocks(),
             state_slots=self.n_slots if self._has_state else 0,
             state_bytes_per_slot=lm.state_bytes_per_slot(self.cfg,
                                                          self._caches),
             prefill_chunk=self.prefill_chunk,
+            cross_tokens=self.cfg.frontend_tokens if self._has_cross else 0,
+            cross_cap_blocks=self._cross_width,
+            frontend_extra=self._frontend_extra,
             sharable=self.prefix_cache))
-        self._null_row = torch.full((self._max_blocks,),
-                                    cache_cfg.null_block, dtype=torch.int32,
-                                    device=self.device)
+        null = cache_cfg.null_block
+        self._null_rows = {
+            group: torch.full((width,), null, dtype=torch.int32,
+                              device=self.device)
+            for group, width in (("global", self._max_blocks),
+                                 ("window", self._max_blocks),
+                                 ("cross", self._cross_width))}
         # one published [n_slots, W] table per block group
-        self._tables = {group: self._null_row.repeat(self.n_slots, 1)
+        self._tables = {group: self._null_rows[group].repeat(self.n_slots, 1)
                         for group, has in (("global", self._has_global),
-                                           ("window", self._has_window))
+                                           ("window", self._has_window),
+                                           ("cross", self._has_cross))
                         if has}
         # lanes holding a decoding request, kept on the device so the
         # decode step never reads it back; a lane mid chunked prefill
@@ -533,9 +583,8 @@ class ContinuousEngine:
                                    device=self.device)
         self._decode_p = make_paged_decode_step(self.cfg, self.impl)
         if self.prefill_chunk:
-            self._chunk = make_chunk_prefill_step(self.cfg,
-                                                  self.prefill_chunk,
-                                                  self.impl)
+            self._chunk = make_chunk_prefill_step(
+                self.cfg, self.prefill_chunk, self.impl)
         if self.speculate:
             self._draft_step = make_draft_decode_step(
                 self.cfg, self.draft_layers, self.impl)
@@ -600,14 +649,33 @@ class ContinuousEngine:
 
     def submit(self, prompt, max_new_tokens: int, *, rid=None,
                arrival: int = 0, eos_id: Optional[int] = None,
+               frontend_emb=None,
                sampling: Optional[SamplingParams] = None) -> object:
         """Queue a request; returns its id.  ``prompt`` is a 1-D sequence
         of token ids; ``arrival`` the engine step at which it becomes
-        admissible; ``sampling`` its ``SamplingParams`` (None is exact
+        admissible; ``frontend_emb`` a modality-frontend or enc-dec
+        request's precomputed embeddings [frontend_tokens, frontend_dim]
+        (required there, refused elsewhere; projected or encoded once, at
+        admission); ``sampling`` its ``SamplingParams`` (None is exact
         greedy)."""
         if sampling is not None and not isinstance(sampling, SamplingParams):
             raise ValueError(
                 f"sampling must be a SamplingParams, got {type(sampling)}")
+        if self.cfg.frontend or self.cfg.n_enc_layers:
+            want = (self.cfg.frontend_tokens, self.cfg.frontend_dim)
+            if frontend_emb is None:
+                raise ValueError(
+                    f"{self.cfg.name}: requests must carry frontend_emb "
+                    f"{list(want)} (precomputed modality-frontend "
+                    "embeddings)")
+            frontend_emb = torch.as_tensor(frontend_emb, device=self.device)
+            if tuple(frontend_emb.shape) != want:
+                raise ValueError(
+                    f"{self.cfg.name}: frontend_emb shape "
+                    f"{tuple(frontend_emb.shape)} != {want}")
+        elif frontend_emb is not None:
+            raise ValueError(f"{self.cfg.name} is a decoder-only token LM; "
+                             "it takes no frontend_emb")
         prompt = [int(t) for t in prompt]
         if rid is None:
             while self._next_rid in self._rids:
@@ -621,25 +689,29 @@ class ContinuousEngine:
         self.scheduler.submit(Request(rid=rid, prompt=prompt,
                                       max_new_tokens=max_new_tokens,
                                       arrival=arrival, eos_id=eos_id,
+                                      frontend_emb=frontend_emb,
                                       block_hashes=hashes,
                                       sampling=sampling))
         self._rids.add(rid)
         return rid
 
-    def _full_prefill(self, prompt: torch.Tensor, sample_args) -> tuple:
+    def _full_prefill(self, prompt: torch.Tensor, fe1,
+                      sample_args) -> tuple:
         """Whole-prompt prefill, right-padded to its bucket with
         ``bucket_prompts``, into a fresh dense single-request cache (a
-        fresh one each time: the prefill writes it in place)."""
-        cache = lm.init_cache(self.cfg, 1, self.kv_len, self.dtype,
+        fresh one each time: the prefill writes it in place); ``fe1`` the
+        request's [1, F, frontend_dim] embeddings or None."""
+        cache = lm.init_cache(self.cfg, 1, self._kv_total, self.dtype,
                               self.device)
         if not self.bucket_prompts:
-            return self._prefill(self.params, cache, prompt[None],
+            return self._prefill(self.params, cache, prompt[None], fe1,
                                  sample_args)
         n = prompt.shape[0]
         padded = torch.zeros((1, bucket_length(n, self.kv_len)),
                              dtype=torch.int32, device=self.device)
         padded[0, :n] = prompt
-        return self._prefill_b(self.params, cache, padded, n, sample_args)
+        return self._prefill_b(self.params, cache, padded, n, fe1,
+                               sample_args)
 
     def _window_cap_blocks(self) -> int:
         """Most blocks one lane's window ring can pin at once: the blocks
@@ -649,15 +721,17 @@ class ContinuousEngine:
         if not self._has_window:
             return 0
         bf = lambda n: -(-n // self.block_size)          # noqa: E731
-        wc = min(self.kv_len, self.cfg.window_size)
+        wc = min(self._kv_total, self.cfg.window_size)
         cap = bf(wc) + 1 + (bf(self.prefill_chunk) if self.prefill_chunk
                             else 0)
-        return min(bf(self.kv_len), cap)
+        return min(bf(self._kv_total), cap)
 
     def _refresh_row(self, slot: int, group: str) -> torch.Tensor:
         """``slot``'s table row for ``group`` from the allocator's tables."""
         if group == "global":
             row = self.allocator.padded_table(slot, self._max_blocks)
+        elif group == "cross":
+            row = self.allocator.padded_cross_table(slot, self._cross_width)
         else:
             row = self.allocator.padded_window_table(slot, self._max_blocks)
         return torch.tensor(row, dtype=torch.int32, device=self.device)
@@ -691,11 +765,15 @@ class ContinuousEngine:
         slot = act.slot
         prompt = torch.tensor(act.request.prompt, dtype=torch.int32,
                               device=self.device)
-        start_pos = act.request.prompt_len
+        fe = act.request.frontend_emb
+        fe1 = None if fe is None else fe[None]
+        # the lane decodes past everything resident: the prompt, after a
+        # modality frontend's rows
+        start_pos = self._frontend_extra + act.request.prompt_len
         self._set_lane_sampling(slot, act)
         if not self.paged:
             tok, cache = self._full_prefill(
-                prompt, self._first_token_args(slot, start_pos))
+                prompt, fe1, self._first_token_args(slot, start_pos))
             lm.write_slot_cache(self._caches, cache, slot)
             self._toks[slot] = tok[0]
             self._pos[slot] = start_pos
@@ -724,11 +802,22 @@ class ContinuousEngine:
             # occupant's state, reset before the chunks carry state in
             if self._has_state:
                 lm.zero_state_lane(self.cfg, self._caches, slot)
+            if self._has_cross:
+                # encode at admission: the lane's cross block set is
+                # written once, here, and only read afterwards
+                lm.insert_cross_rows(
+                    self.cfg, self._caches,
+                    lm.encode_cross_single(self.cfg, self.params, fe1),
+                    rows["cross"], block_size=self.block_size,
+                    null_block=self.allocator.config.null_block)
+            # a modality frontend's rows ride the chunks as embedding rows
+            item = (lm.embed_prompt_rows(self.cfg, self.params, prompt, fe)
+                    if self._frontend_extra else prompt)
             self._rows[slot] = rows
-            self._prefilling[slot] = [prompt, 0, skip]
+            self._prefilling[slot] = [item, 0, skip]
             return
         tok, cache = self._full_prefill(
-            prompt, self._first_token_args(slot, start_pos))
+            prompt, fe1, self._first_token_args(slot, start_pos))
         # whole-prompt admission overwrites the lane's state slabs, so a
         # reused lane needs no reset; it recomputes the whole prompt and
         # writes the rows from ``skip`` on (the shared ones stay read-only)
@@ -755,15 +844,18 @@ class ContinuousEngine:
 
     def _run_chunk(self, slot: int) -> bool:
         """Advance ``slot``'s chunked prefill by one chunk; returns True,
-        with the decode lane activated, once the prompt is resident."""
-        prompt, done, skip = self._prefilling[slot]
+        with the decode lane activated, once the prompt is resident.  The
+        chunks slice token ids, or a modality-frontend arch's embedding
+        rows (``total`` then counts the frontend rows)."""
+        item, done, skip = self._prefilling[slot]
         C = self.prefill_chunk
         start = skip + done * C                # past the cached positions
-        total = prompt.shape[0]
-        piece = prompt[start:start + C]
+        total = item.shape[0]
+        piece = item[start:start + C]
         valid = piece.shape[0]                 # real rows in this slice
         if valid < C:                          # pad the final chunk to C
-            piece = torch.cat([piece, piece.new_zeros(C - valid)])
+            piece = torch.cat([piece,
+                               piece.new_zeros((C - valid,) + piece.shape[1:])])
         if self._has_window:
             # slide the ring over this slice; rows behind the slice's
             # first query keep their window (freed once fully behind)
@@ -797,8 +889,8 @@ class ContinuousEngine:
         self._samp.pop(slot, None)
         self._prefilling.pop(slot, None)
         if self.paged:
-            for table in self._tables.values():
-                table[slot] = self._null_row
+            for group, table in self._tables.items():
+                table[slot] = self._null_rows[group]
             self._active[slot] = False
             self._host_pos.pop(slot, None)
             self._rows.pop(slot, None)
@@ -900,7 +992,8 @@ class ContinuousEngine:
         sp = self._samp[slot]
         pos = self._host_pos[slot]
         budget = act.request.max_new_tokens - len(act.tokens)
-        k_r = max(0, min(self.speculate, budget - 1, self.kv_len - pos - 1))
+        k_r = max(0, min(self.speculate, budget - 1,
+                         self._kv_total - pos - 1))
         while True:
             try:
                 self._grow(slot, pos + k_r + 1, first_query_pos=pos)

@@ -77,6 +77,7 @@ class RoutedRequest:
     arrival: int                      # router step (one step = one sweep
                                       # of every replica's engine step)
     eos_id: Optional[int] = None
+    frontend_emb: Optional[object] = None
     sampling: Optional[object] = None
     block_hashes: tuple = ()
     seq: int = 0                      # submit order (FCFS tie-break)
@@ -273,7 +274,7 @@ class Router:
 
     def submit(self, prompt, max_new_tokens: int, *, rid=None,
                arrival: int = 0, eos_id: Optional[int] = None,
-               sampling=None) -> object:
+               frontend_emb=None, sampling=None) -> object:
         """Queue a request with the router (same contract as
         ``ContinuousEngine.submit``; ``arrival`` is in router steps).
         Placement happens when the request arrives, against the fleet's
@@ -304,7 +305,8 @@ class Router:
             hashes = lm.prompt_block_hashes(prompt, bs)
         req = RoutedRequest(rid=rid, prompt=prompt,
                             max_new_tokens=max_new_tokens, arrival=arrival,
-                            eos_id=eos_id, sampling=sampling,
+                            eos_id=eos_id, frontend_emb=frontend_emb,
+                            sampling=sampling,
                             block_hashes=hashes,
                             seq=self._seq)
         self._seq += 1
@@ -344,6 +346,7 @@ class Router:
         rep = self.replicas[idx]
         rep.engine.submit(req.prompt, req.max_new_tokens, rid=req.rid,
                           arrival=rep.engine.now, eos_id=req.eos_id,
+                          frontend_emb=req.frontend_emb,
                           sampling=req.sampling)
         self.decisions.append(RouteDecision(
             rid=req.rid, replica=idx, kind=kind, score=s[0],
@@ -407,7 +410,7 @@ class Router:
                 dst.import_prefix_blocks(chain)
         dst.submit(req.prompt, req.max_new_tokens, rid=req.rid,
                    arrival=dst.now, eos_id=req.eos_id,
-                   sampling=req.sampling)
+                   frontend_emb=req.frontend_emb, sampling=req.sampling)
         self.stats["handoffs"] += 1
         self.stats["routed"] += 1
         self.routed_per_replica[idx] += 1

@@ -32,16 +32,19 @@ from .cache import BlockAllocator
 @dataclass
 class Request:
     """One serving request: prompt token ids and a decode budget.
-    ``block_hashes`` is the prompt's content hash chain over full cache
-    blocks (``models.lm.prompt_block_hashes``), filled in by the engine
-    when its prefix cache is on and matched by the allocator at
-    admission."""
+    ``frontend_emb`` carries a modality-frontend or enc-dec request's
+    precomputed frontend embeddings ([frontend_tokens, frontend_dim]); the
+    projection or the encoder runs once, at admission.  ``block_hashes``
+    is the prompt's content hash chain over full cache blocks
+    (``models.lm.prompt_block_hashes``), filled in by the engine when its
+    prefix cache is on and matched by the allocator at admission."""
 
     rid: object
     prompt: object                   # int sequence of token ids
     max_new_tokens: int
     arrival: int = 0                 # engine step at which it exists
     eos_id: Optional[int] = None     # stop early when this token is emitted
+    frontend_emb: Optional[object] = None
     block_hashes: Optional[tuple] = None
     sampling: Optional[object] = None  # SamplingParams; None is greedy
 
@@ -101,7 +104,11 @@ class SlotScheduler:
         self.preemptions = 0
 
     def submit(self, request: Request) -> None:
-        """Queue a request after checking it can ever be served."""
+        """Queue a request after checking it can ever be served.  The
+        bound is in logical tokens: a modality frontend's physical rows
+        are priced by the allocator's layout and sized into the engine's
+        lanes (``kv_len + frontend_extra``), so a request at exactly the
+        bound fits its lane."""
         worst = request.prompt_len + request.max_new_tokens
         if worst > self.kv_len:
             raise ValueError(

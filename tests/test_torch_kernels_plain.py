@@ -278,6 +278,61 @@ def test_flash_plain_ragged_and_empty_slots_match_jax():
         assert err < 2e-2
 
 
+@pytest.mark.parametrize("n_split", [None, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_plain_head_dim_96_matches_jax(n_split, dtype):
+    """Phi-3-Vision's shape class: head dim 96, one query head per KV head
+    (MHA), ragged contexts, against the JAX kernel in interpret mode (and
+    the split and combine at n_split 3); bf16 to the flash bf16 bar."""
+    arrs = _paged_case(21, B=3, H=4, KV=4, hd=96, bs=16, width=4,
+                       lens=[1, 33, 64])
+    jq, jkp, jvp, jtab, jlens = _j(*arrs)
+    tq, tkp, tvp, ttab, tlens = _t(*arrs)
+    if dtype == "bfloat16":
+        jq, jkp, jvp = (a.astype(jnp.bfloat16) for a in (jq, jkp, jvp))
+        tq, tkp, tvp = (a.bfloat16() for a in (tq, tkp, tvp))
+    exp = np.asarray(jpa_ops.paged_attention(
+        jq, jkp, jvp, jtab, jlens, interpret=True), np.float32)
+    got = pa_ops.paged_attention(tq, tkp, tvp, ttab, tlens,
+                                 n_split=n_split).float().numpy()
+    assert got.shape == (3, 4, 96)
+    assert np.abs(got - exp).max() < (1e-5 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_head_dim_96_matches_jax(causal):
+    """Head dim 96 through the flash plain version and the JAX kernel in
+    interpret mode: causal prefill at Phi-3's MHA grouping, and non-causal
+    cross attention over a gathered set whose tail positions are -1."""
+    rng = np.random.default_rng(22)
+    Sq, Skv = (37, 37) if causal else (5, 48)
+    q = rng.standard_normal((2, Sq, 4, 96)).astype(np.float32)
+    k = rng.standard_normal((2, Skv, 4, 96)).astype(np.float32)
+    v = rng.standard_normal((2, Skv, 4, 96)).astype(np.float32)
+    kp = np.arange(Skv, dtype=np.int32)
+    if causal:
+        qp = kp
+    else:
+        kp = np.where(kp < 40, kp, -1).astype(np.int32)
+        qp = np.zeros(Sq, np.int32)
+    exp = np.asarray(jfa_ops.flash_attention(
+        *_j(q, k, v), q_positions=jnp.asarray(qp),
+        k_positions=jnp.asarray(kp), causal=causal, interpret=True))
+    tq, tk, tv, tqp, tkp = _t(q, k, v, qp, kp)
+    got = fa_ops.flash_attention(tq, tk, tv, q_positions=tqp,
+                                 k_positions=tkp, causal=causal)
+    assert got.shape == (2, Sq, 4, 96)
+    assert np.abs(got.numpy() - exp).max() < 2e-5
+    exp16 = np.asarray(jfa_ref.reference(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+        q_positions=jnp.asarray(qp), k_positions=jnp.asarray(kp),
+        causal=causal), np.float32)
+    got16 = fa_ops.flash_attention(tq.bfloat16(), tk.bfloat16(),
+                                   tv.bfloat16(), q_positions=tqp,
+                                   k_positions=tkp, causal=causal)
+    assert np.abs(got16.float().numpy() - exp16).max() < 2e-2
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take():
     q, kp, vp, tables, lens = _t(*_paged_case(5, B=2, H=4, KV=2, hd=16,
                                               bs=8, width=2, lens=[3, 9]))

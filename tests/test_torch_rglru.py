@@ -79,7 +79,8 @@ def test_config_has_the_reference_layer_pattern():
             small.lru_width) == (16, 1, 32, 64)
     assert lm.unsupported_reason(full) is None
     assert lm.serve_groups(small) == {"paged": (), "window": (2, 5),
-                                      "recurrent": (0, 1, 3, 4)}
+                                      "recurrent": (0, 1, 3, 4),
+                                      "cross": ()}
 
 
 def test_init_params_tree_matches_reference():

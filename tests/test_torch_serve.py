@@ -102,10 +102,11 @@ def test_config_copy_matches_reference():
 
 def test_serve_groups_match_reference():
     """The per-layer cache-group report over every registry arch (ported
-    configs built from the reference's fields), and the port's refusal of
-    every arch with a layer kind other than global or sliding-window
-    attention or RG-LRU with a dense FFN, SSD with no FFN, or MLA with a
-    dense or an MoE FFN."""
+    configs built from the reference's fields), the enc-dec cross overlay
+    included, and the port's refusal of every arch with a layer kind other
+    than global or sliding-window attention or RG-LRU with a dense FFN,
+    SSD with no FFN, or MLA with a dense or an MoE FFN, whether
+    decoder-only, behind a modality frontend or under an encoder."""
     from repro.models.config import ModelConfig as JModelConfig
     from repro_torch.models.config import ModelConfig
     for name in jconfigs.available():
@@ -114,11 +115,11 @@ def test_serve_groups_match_reference():
         cfg = ModelConfig(**dataclasses.asdict(jcfg))
         ref = jlm.serve_groups(jcfg)
         assert lm.serve_groups(cfg) == {k: ref[k] for k in
-                                        ("paged", "window", "recurrent")}
+                                        ("paged", "window", "recurrent",
+                                         "cross")}
         plain = {s.key for s in cfg.layers()} <= {
             "global+dense", "local+dense", "ssd+none", "rglru+dense",
-            "mla+dense", "mla+moe"} and \
-            not cfg.n_enc_layers and not cfg.frontend
+            "mla+dense", "mla+moe"}
         assert (lm.unsupported_reason(cfg) is None) == plain, name
     assert lm.unsupported_reason(configs.get(SSM_ARCH)) is None
 
@@ -248,10 +249,11 @@ def test_engines_refuse_what_is_not_ported(models):
     with pytest.raises(ValueError, match="divisible"):
         ContinuousEngine(cfg, tp, paged=True, kv_len=40, block_size=16,
                          device="cpu")
-    vision = cfg.replace(frontend="vision", frontend_tokens=8,
-                         frontend_dim=cfg.d_model)
+    window_moe = cfg.replace(layer_cycle=(("local", "moe"),),
+                             window_size=32, n_experts=4,
+                             experts_per_token=2, d_ff_expert=64)
     with pytest.raises(NotImplementedError, match="not ported"):
-        Engine(vision, tp, **kw)
+        Engine(window_moe, tp, **kw)
 
 
 def test_entry_points_need_a_card_unless_told_cpu(models, monkeypatch):
