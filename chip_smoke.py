@@ -61,8 +61,17 @@ exit code:
    over 1,088 rows and a misaligned start.  Seamless-m4t-medium (H = KV =
    16, hd 64): paged at its trace, causal flash, and flash as cross
    attention (non-causal) of a 131-row prompt and of 4 decode lanes over
-   1,024 encoder frames, also with the last 24 positions -1.  Both
-   wrappers refuse head dim 80 on CUDA tensors.
+   1,024 encoder frames, also with the last 24 positions -1.  The head
+   shapes of the rest of the registry: command-r-35b's GQA 64 / 8 at hd
+   128 and gemma2-9b's 16 / 8 at hd 256 through the split and tile cases
+   above (names tagged ``_h64kv8``, ``_h16kv8``); paged at the trace's
+   lanes for command-r, mixtral-8x7b (32 / 8, hd 128, window 4096),
+   minicpm-2b (MHA, 36 heads at hd 64) and gemma2 (softcap 50, window
+   4096 and none), and gemma2's long lane (4,132 rows in a 288-block
+   table, past the window) and lanes across it; flash at their prompts,
+   a dense lane's decode step, and gemma2's 4,100-row prompt with and
+   without the window.  Both wrappers refuse head dim 80 on CUDA
+   tensors.
 4. kernel_timing — both attention kernels in bf16 at TinyLlama's and
    recurrentgemma's head shapes, and the scans at mamba2-370m's and
    recurrentgemma-2b's (the SSD kernel's bf16 body; the RG-LRU kernel with
@@ -77,7 +86,13 @@ exit code:
    192, v 128) at both lengths, with the kernels SDPA ran there (its
    backend); and both attention kernels at phi-3-vision's hd 96, its
    lanes' contexts and its prompt behind 576 frontend rows (paged: 68
-   blocks a table; flash: 707 rows, and 2048).
+   blocks a table; flash: 707 rows, and 2048), and command-r-35b's hd 128 (GQA 64
+   / 8), gemma2-9b's hd 256 (16 / 8, softcap 50 and window 4096) and
+   minicpm-2b's MHA shape the same way.  SDPA has no softcap, so
+   gemma2's flash yardstick is one compiled ``flex_attention`` call with
+   the softcap as its score modifier (compiled once per shape before it
+   is timed), with its Triton kernel's name and its largest difference
+   from the kernel's output.
 5. serve   — the three main paths, one after the other (each followed by
    its timing, so that one path's weights never count in the other's
    peak memory), each with every launch counter zeroed
@@ -93,36 +108,51 @@ exit code:
    served by ``ContinuousEngine(paged=True, impl="kernel")`` for 8
    staggered requests: n_layers flash launches per prefill and paged
    launches per decode step, no scan launch.  Then mamba2-370m the same
-   way: n_layers SSD-scan launches per prefill, no attention launch, and
-   no state slot left in use.  Then recurrentgemma-2b: its reduced model's
+   way, cut to 16 of its 48 layers (``DEPTH``: every path's host time
+   scales with its layers): n_layers SSD-scan launches per prefill, no
+   attention launch, and no state slot left in use.  Then
+   recurrentgemma-2b, cut to 8 of its 26 layers: its reduced model's
    window of 32 is shorter than the prompts, so window rings free blocks;
-   at full width 18 RG-LRU-scan and 8 flash launches per prefill, 8 paged
+   at full width 6 RG-LRU-scan and 2 flash launches per prefill, 2 paged
    launches per decode step, no SSD launch, and no block, ring or state
    slot left in use.  After the paper-mlp serve of phase ``adapt``,
-   deepseek-v2-lite-16b (27 MLA layers, layer 0 with a dense FFN and 26
-   with 64 routed experts top-6 and 2 shared, every serving forward MoE-
-   lossless) through ``serve``, ``adapt``, ``serve_modes``, run (a) of
-   ``prefix_router`` and ``timing``: 27 flash launches per whole prefill
+   deepseek-v2-lite-16b (cut to 6 of its 27 MLA layers to keep the
+   script inside its limit: layer 0 with a dense FFN and 5 with 64 routed
+   experts top-6 and 2 shared, every serving forward MoE-lossless) through ``serve``, ``adapt``, ``serve_modes``, run (a) of
+   ``prefix_router`` and ``timing``: 6 flash launches per whole prefill
    and no other kernel (MLA decodes and chunks in plain einsums over the
    latents), its init tree's parameter count beside the reference's
-   ``param_count()``, and peak memory of the f32 run (62.8 GB of
-   weights).  A diverging request of an MoE model also gives the plain
+   ``param_count()`` of the cut config, and peak memory of the f32 run.  A diverging request of an MoE model also gives the plain
    path's least gap between the k-th and (k+1)-th router probability
    there (``router_gap``).  Its sampling, speculation, lazy pricing and
    router fleets are left to the CPU tests.  Then the modality-frontend
    archs, each through ``serve``, ``adapt``, ``serve_modes`` and
    ``timing`` (their decode policies and fleets are left to the CPU
-   tests): phi-3-vision-4.2b (3,824,225,280 parameters in the init tree
-   beside ``param_count()``'s 3,821,079,552; every request with 576 x
-   1,024 seeded stub image embeddings, projected and paged ahead of its
-   prompt: 32 flash launches per prefill, 32 paged per decode step), and
+   tests): phi-3-vision-4.2b cut to 16 of its 32 layers (2,012,187,648
+   parameters in the init tree beside ``param_count()``'s 2,009,041,920
+   of the cut config; every request with 576 x 1,024 seeded stub image
+   embeddings, projected and paged ahead of its prompt: 16 flash launches
+   per prefill, 16 paged per decode step), and
    seamless-m4t-medium (982,579,200 beside 977,744,896; 1,024 x 1,024
    stub frame embeddings through the 12-layer encoder at admission, on
    the plain attention; per prefill 12 causal and 12 cross flash
    launches, per decode step 12 paged and 12 flash, the lanes' single
    query rows over their gathered cross block sets in one launch per
    layer).  Request i's embeddings are standard normal from seed 500 + i
-   in every engine and oracle that serves it.
+   in every engine and oracle that serves it.  Then the rest of the
+   registry, each through ``serve``, ``adapt`` and ``timing``, its
+   init tree's parameter count beside ``param_count()`` (of the same
+   cut): gemma2-9b at full depth in f32 (42 layers, window 4096 on 21 of
+   them beside 21 global ones, softcaps 50 and 30; 42 flash launches per
+   prefill, 42 paged per decode step), also through ``serve_modes`` and
+   ``long_request``: one 4,100-token prompt for 32 tokens alone in
+   ``ContinuousEngine(paged=True, kv_len=4608, n_slots=1)``, its prefill
+   windowed past the window and its ring freeing blocks in decode, the
+   ring's peak at most ``window_cap_blocks`` (257), the global table's
+   beside it; minicpm-2b at full depth; command-r-35b's f32 gate at 8 of
+   40 layers and mixtral-8x7b's at 8 of 32 (each f32 at full depth would
+   not fit the card).  Their decode policies, prefix cache and fleets are
+   left to the CPU tests.
    adapt — after each path's ``serve``: the paper's §3 assistants
    (``adapt_plan``) over that plan under the run's
    ``device_interference`` and ``assistant_callback``; every delta
@@ -138,13 +168,13 @@ exit code:
    token gate and launch counting, and runs the same loop.
    sampler — after ``kernel_timing``: the sampler of one batched decode
    step (every lane's key and ``sample_lanes``) at 4 lanes of each served
-   vocabulary, its kernel launches per step (one profiled call) and its
+   vocabulary (32,000, 50,280, 256,000 and 122,753), its kernel launches per step (one profiled call) and its
    time by CUDA events.
 6. serve_modes — after each path's ``serve``, the same trace (reduced
    model first) in the engine's two other modes, in f32, each request
    against phase ``serve``'s plain tokens under the same margin rule:
    bucketed paged lanes with 16-row chunked prefill (the README's serving
-   example; n_ssd or n_rglru launches per chunk, i.e. 48 or 18 x the sum
+   example; n_ssd or n_rglru launches per chunk, i.e. 24 or 10 x the sum
    of ceil(len / 16) over the prompts, no flash launch since a chunk's
    attention is the plain gather, paged launches from the decode steps
    only) and bucketed dense lanes (flash per attention layer and prefill
@@ -204,17 +234,19 @@ exit code:
    untraced, each beside the same trace without the prefix cache
    (tokens/s, mean prefill and chunk step, hit rate, decode starvation,
    peak memory, the card's name and power limit),
-   and a repeat under ``torch.profiler``
-   (device time by kernel name, the device's busy share, and each port
-   kernel's device time per launch on the path, with the kernel functions
-   it ran: mamba2's must be the SSD kernel's tensor-core body only).
-   deepseek-v2-lite's bf16 trace runs after its f32 weights are freed
-   (the bf16 ones made from the same seed): tokens/s, decode step,
-   prefill, peak memory, launches and the profiled repeat only.  The
-   frontend archs' traces (their f32 weights cast): tokens/s, decode step,
-   prefill, peak memory, launches held to the serve formula, and a
-   profiled repeat of their first 4 requests for 8 tokens (flash must run
-   its tensor-core body).
+   and a profiled repeat under ``torch.profiler`` (device time by kernel
+   name, the device's busy share of that repeat, and each port kernel's
+   device time per launch on the path, with the kernel functions it ran:
+   mamba2's must be the SSD kernel's tensor-core body only): of the whole
+   trace for the paths in ``WHOLE_PROFILE`` (TinyLlama, mamba2,
+   recurrentgemma, deepseek), else of its first 4 requests for 8 tokens
+   (the line names the trace).  The later paths' bf16 traces run on bf16
+   weights made after their f32 weights are freed (from the same seed:
+   the f32 draws rounded, as a cast would give), at the f32 gate's depth
+   but for command-r (full depth, 60.6 GB) and mixtral (16 of 32
+   layers): tokens/s, decode step, prefill, peak memory, launches held to
+   the serve formula and the profiled repeat.  Flash must run its
+   tensor-core body.
 
 8. train   — single-card training, after the serving paths, with every
    launch counter zeroed before it and required to stay at zero (training
@@ -239,11 +271,12 @@ exit code:
    with ``--resume``; the losses of steps 4-6 within 1e-5 relative.
 
 Then the ``{"kernels": [...]}`` summary line (paged and flash attention at
-TinyLlama's hd 64, with recurrentgemma's hd 256, phi-3-vision's hd 96
-and, for flash, deepseek-v2-lite's q/k 192, v 128 beside them; every kernel
+TinyLlama's hd 64, with recurrentgemma's hd 256, phi-3-vision's hd 96,
+command-r-35b's hd 128 and, for flash, deepseek-v2-lite's q/k 192, v 128
+beside them; every kernel
 with its long shape; launches summed over every full-width run of phases
-``serve``, ``serve_modes``, ``sample_spec``, ``prefix_router`` and
-``adapt``, and by run),
+``serve``, ``serve_modes``, ``sample_spec``, ``prefix_router``,
+``long_request`` and ``adapt``, and by run),
 the wall time of each phase, the card's ``name, power.limit`` line, and
 last ``{"ok": true, "device": ...}``.  The build phase also counts each kernel
 function's tensor-core instructions (``cuobjdump -sass``).  Bounds use the
@@ -275,13 +308,41 @@ DS_ARCH = "deepseek-v2-lite-16b"
 # port's ModelConfig has no param_count; its init tree is counted here)
 VLM_ARCH = "phi-3-vision-4.2b"
 ED_ARCH = "seamless-m4t-medium"
-# the reference configs' param_count(), beside the port's init tree
+GEMMA_ARCH = "gemma2-9b"
+CPM_ARCH = "minicpm-2b"
+CR_ARCH = "command-r-35b"
+MX_ARCH = "mixtral-8x7b"
+# the reference configs' param_count() (of the config cut to that many
+# layers where a path cuts its depth), beside the port's init tree
 REFERENCE_PARAM_COUNT = {DS_ARCH: 15_759_554_560, VLM_ARCH: 3_821_079_552,
-                         ED_ARCH: 977_744_896}
+                         ED_ARCH: 977_744_896, GEMMA_ARCH: 9_241_404_928,
+                         CPM_ARCH: 2_724_880_896,
+                         CR_ARCH: 30_283_538_432, MX_ARCH: 46_702_792_704,
+                         (DS_ARCH, 6): 3_436_472_320,
+                         (VLM_ARCH, 16): 2_009_041_920,
+                         (CR_ARCH, 8): 7_734_435_840,
+                         (MX_ARCH, 8): 11_872_309_248,
+                         (MX_ARCH, 16): 23_482_470_400}
+# depth cuts (layers run of the arch's n_layers), made to keep the script
+# inside its time limit on a slow host (mamba2, recurrentgemma, phi-3 and
+# deepseek: host time that scales with the layers; uncut, they took the
+# script past 1,200 s on an H100 host 25-45 % slower than another) or
+# one card's 80 GB (the f32 gates of command-r and mixtral; their bf16
+# timing: command-r at full depth, mixtral at 16 of 32)
+DEPTH = {SSM_ARCH: 16, RG_ARCH: 8, VLM_ARCH: 16, DS_ARCH: 6, CR_ARCH: 8,
+         MX_ARCH: 8}
+# the bf16 timing's depth where it is not the f32 gate's
+BF16_DEPTH = {CR_ARCH: 40, MX_ARCH: 16}
+# gemma2's long request: a prompt past its 4,096-row window, served alone
+# in one lane of LONG_KV_LEN rows
+LONG_PROMPT = 4100
+LONG_KV_LEN = 4608
 # request i of a trace carries stub frontend embeddings seeded by this + i
 FRONTEND_SEED = 500
-# the profiled repeat of the frontend archs' bf16 traces: their first 4
-# requests for 8 tokens (the profiler's processing grows with the events)
+# the profiled repeat of a path's bf16 trace: the whole trace for these
+# paths, else its first 4 requests for 8 tokens (the profiler's processing
+# grows with the events: 11-16 s for the 4 x 8 repeat of a 40-layer path)
+WHOLE_PROFILE = (ARCH, SSM_ARCH, RG_ARCH, DS_ARCH)
 PROFILE_PROMPTS = 4
 PROFILE_NEW = 8
 PLAN_DEVICES = 4        # modelled H100 SXM cards the serve plans are for
@@ -328,6 +389,10 @@ TOL = {("paged", "float32"): 1e-5, ("flash", "float32"): 2e-5,
        ("ssd", "float32"): 1e-4, ("ssd", "bfloat16"): 1e-4,
        ("rglru", "float32"): 1e-4, ("rglru", "near_one"): 1e-3}
 SSD_CHUNK = 32          # the chunk ssd_cost counts C B^T over
+# (hd, H, KV, name tag) of the kernels' split and tile cases: TinyLlama's,
+# recurrentgemma's, phi-3-vision's, command-r-35b's and gemma2-9b's heads
+HEAD_SHAPES = ((64, 32, 4, ""), (256, 10, 1, ""), (96, 32, 32, ""),
+               (128, 64, 8, "_h64kv8"), (256, 16, 8, "_h16kv8"))
 # phase train (b): (arch, batch, seq, steps, extra launcher flags)
 TRAIN_RUNS = ((ARCH, 8, 512, 20, ("--lr", "3e-3", "--schedule", "cosine")),
               (SSM_ARCH, 4, 512, 5, ()), (RG_ARCH, 2, 256, 5, ()),
@@ -583,22 +648,46 @@ def phase_kernels(dev) -> dict:
         # seamless-m4t-medium's decoder self-attention: MHA, H = KV = 16
         ("ed_main_trace", 4, 16, 16, 64, 16, 32, [18, 201, 46, 132], 0, 0.0,
          None),
+        # command-r-35b: GQA 64 / 8 at hd 128; mixtral-8x7b: 32 / 8 at hd
+        # 128 with its window of 4096; minicpm-2b: MHA, 36 heads at hd 64
+        ("cr_main_trace", 4, 64, 8, 128, 16, 32, [18, 201, 46, 132], 0,
+         0.0, None),
+        ("cr_main", 4, 64, 8, 128, 16, 64, [1, 17, 500, 1024], 0, 0.0,
+         None),
+        ("mx_main_trace", 4, 32, 8, 128, 16, 32, [18, 201, 46, 132], 4096,
+         0.0, None),
+        ("cpm_main_trace", 4, 36, 36, 64, 16, 32, [18, 201, 46, 132], 0,
+         0.0, None),
+        # gemma2-9b: GQA 16 / 8 at hd 256, softcap 50, window 4096 (its
+        # global layers: no window); the long request's lane (kv_len 4608:
+        # 288-block tables) past the window, and ragged lanes across it
+        ("g2_main_trace", 4, 16, 8, 256, 16, 32, [18, 201, 46, 132], 4096,
+         50.0, None),
+        ("g2_global_trace", 4, 16, 8, 256, 16, 32, [18, 201, 46, 132], 0,
+         50.0, None),
+        ("g2_long_window", 1, 16, 8, 256, 16, 288, [4132], 4096, 50.0,
+         None),
+        ("g2_long_global", 1, 16, 8, 256, 16, 288, [4132], 0, 50.0, None),
+        ("g2_window_b4", 4, 16, 8, 256, 16, 288, [100, 4097, 4600, 17],
+         4096, 50.0, None),
     ]
     # the split over the context: contexts of 1 row to 4096, one lane and
     # four, the wrapper's own n_split and forced ones (single-row lanes
     # leave most splits empty), and a window shorter than the context
-    for hd, H, KV in ((64, 32, 4), (256, 10, 1), (96, 32, 32)):
+    # (command-r's and gemma2's head shapes carry their heads in the name)
+    for hd, H, KV, tag in HEAD_SHAPES:
         for B, lens in ((1, [4096]), (1, [1]), (4, [1, 16, 17, 215]),
                         (4, [2048, 4096, 17, 1])):
             mb = -(-max(lens) // 16)
             for n_split in (None, 3, 16):
                 paged_cases.append(
-                    (f"split_hd{hd}_b{B}_ctx{max(lens)}_n{n_split or 'auto'}",
+                    (f"split_hd{hd}{tag}_b{B}_ctx{max(lens)}_"
+                     f"n{n_split or 'auto'}",
                      B, H, KV, hd, 16, mb, lens, 0, 0.0, n_split))
         for n_split in (None, 5):
             paged_cases.append(
-                (f"split_hd{hd}_window1000_n{n_split or 'auto'}", 4, H, KV,
-                 hd, 16, 256, [100, 2048, 4096, 17], 1000, 0.0, n_split))
+                (f"split_hd{hd}{tag}_window1000_n{n_split or 'auto'}", 4, H,
+                 KV, hd, 16, 256, [100, 2048, 4096, 17], 1000, 0.0, n_split))
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for (name, B, H, KV, hd, bs, mb, lens, win, cap,
@@ -617,7 +706,8 @@ def phase_kernels(dev) -> dict:
                          "dtype": dname, "max_abs_err": err, "tol": tol,
                          "ok": err < tol})
             if dname == "float32" and name.startswith(
-                    ("main", "rg_", "mlp_main", "phi3_main", "ed_")):
+                    ("main", "rg_", "mlp_main", "phi3_main", "ed_", "cr_",
+                     "mx_", "cpm_", "g2_")):
                 main_err["paged_attention"] = max(
                     main_err["paged_attention"], err)
     flash_cases = [
@@ -663,23 +753,43 @@ def phase_kernels(dev) -> dict:
          1000),
         ("ed_cross_tail_sq1_b4", 4, 1, 1024, 16, 16, 64, False, 0, 0.0,
          1000),
+        # command-r-35b (hd 128, G 8), mixtral-8x7b (hd 128, G 4, window
+        # 4096), minicpm-2b (MHA, 36 heads): the trace's prompts and a
+        # dense lane's decode step
+        ("cr_prefill_131", 1, 131, 131, 64, 8, 128, True, 0, 0.0, None),
+        ("cr_prefill_200", 1, 200, 200, 64, 8, 128, True, 0, 0.0, None),
+        ("cr_decode_sq1", 1, 1, 512, 64, 8, 128, True, 0, 0.0, 231),
+        ("mx_prefill_131", 1, 131, 131, 32, 8, 128, True, 4096, 0.0, None),
+        ("cpm_prefill_131", 1, 131, 131, 36, 36, 64, True, 0, 0.0, None),
+        ("cpm_decode_sq1", 1, 1, 512, 36, 36, 64, True, 0, 0.0, 231),
+        # gemma2-9b (hd 256, G 2, softcap 50): its window layers' and global
+        # layers' prefills, a dense lane's decode step, and the long
+        # request's 4,100-row prompt past the 4,096-row window
+        ("g2_prefill_131", 1, 131, 131, 16, 8, 256, True, 4096, 50.0, None),
+        ("g2_global_200", 1, 200, 200, 16, 8, 256, True, 0, 50.0, None),
+        ("g2_decode_sq1", 1, 1, 512, 16, 8, 256, True, 4096, 50.0, 231),
+        ("g2_long_4100", 1, 4100, 4100, 16, 8, 256, True, 4096, 50.0,
+         None),
+        ("g2_long_global_4100", 1, 4100, 4100, 16, 8, 256, True, 0, 50.0,
+         None),
     ]
     # the tensor-core tiling: query lengths around and far past the 64-row
     # tile, causal and not, a window that cuts the prompt, a cached prefill
     # (Sq < Skv, -1 slots past the cache's fill) and a softcap
-    for hd, H, KV in ((64, 32, 4), (256, 10, 1), (96, 32, 32)):
+    for hd, H, KV, tag in HEAD_SHAPES:
         for Sq in (1, 63, 64, 65, 131, 200, 1024, 2048):
             for causal in (True, False):
                 flash_cases.append(
-                    (f"tile_sq{Sq}_hd{hd}_{'causal' if causal else 'full'}",
+                    (f"tile_sq{Sq}_hd{hd}{tag}_"
+                     f"{'causal' if causal else 'full'}",
                      1, Sq, Sq, H, KV, hd, causal, 0, 0.0, None))
         flash_cases += [
-            (f"tile_window48_hd{hd}", 1, 200, 200, H, KV, hd, True, 48, 0.0,
-             None),
-            (f"tile_cached_hd{hd}", 2, 37, 256, H, KV, hd, True, 0, 0.0,
+            (f"tile_window48_hd{hd}{tag}", 1, 200, 200, H, KV, hd, True, 48,
+             0.0, None),
+            (f"tile_cached_hd{hd}{tag}", 2, 37, 256, H, KV, hd, True, 0, 0.0,
              150),
-            (f"tile_softcap_hd{hd}", 1, 131, 131, H, KV, hd, True, 0, 30.0,
-             None),
+            (f"tile_softcap_hd{hd}{tag}", 1, 131, 131, H, KV, hd, True, 0,
+             30.0, None),
         ]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -710,7 +820,8 @@ def phase_kernels(dev) -> dict:
                          "ok": err < tol})
             if dname == "float32" and name.startswith(
                     ("prefill", "decode", "rg_", "mlp_prefill",
-                     "mlp_decode", "phi3_prefill", "phi3_decode", "ed_")):
+                     "mlp_decode", "phi3_prefill", "phi3_decode", "ed_",
+                     "cr_", "mx_", "cpm_", "g2_")):
                 main_err["flash_attention"] = max(
                     main_err["flash_attention"], err)
     # deepseek-v2-lite's MLA prefill: H = KV = 16, q/k 192 (128 + 64 RoPE
@@ -1011,12 +1122,12 @@ def serve_trace(cfg, params, prompts, dev, dtype, max_new=MAX_NEW,
             eng._verify_step = verify
 
 
-def plain_tokens(cfg, params, prompts, dev, dtype,
-                 max_new=MAX_NEW) -> list:
+def plain_tokens(cfg, params, prompts, dev, dtype, max_new=MAX_NEW,
+                 kv_len=KV_LEN) -> list:
     """Each request's tokens from the plain B=1 engine."""
     import torch
     from repro_torch.serve import Engine
-    plain = Engine(cfg, params, kv_len=KV_LEN, dtype=dtype, impl="plain",
+    plain = Engine(cfg, params, kv_len=kv_len, dtype=dtype, impl="plain",
                    device=dev)
     fes = frontend_embs(cfg, dev, len(prompts))
     return [plain.generate(torch.tensor([p], device=dev), max_new,
@@ -1127,11 +1238,33 @@ def expected_paged_launches(cfg, prefills: int, decode_steps: int) -> dict:
             "rglru_scan": mixers.count("rglru") * prefills}
 
 
+def cut_config(arch: str, layers=None):
+    """``arch``'s config at full width, cut to ``layers`` layers when given
+    (a cut's line names it: ``layers`` of ``of_layers``)."""
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    return cfg.replace(n_layers=layers) if layers else cfg
+
+
+def param_counts(arch: str, cfg, params) -> dict:
+    """The init tree's parameter count beside the reference config's
+    ``param_count()`` (of the same cut), where the script knows it."""
+    from repro_torch import configs
+    n = sum(t.numel() for t in _leaves(params))
+    full = configs.get(arch).n_layers
+    key = arch if cfg.n_layers == full else (arch, cfg.n_layers)
+    out = {"params": n, "layers": cfg.n_layers, "of_layers": full}
+    if key in REFERENCE_PARAM_COUNT:
+        out["reference_param_count"] = REFERENCE_PARAM_COUNT[key]
+    return out
+
+
 def phase_serve(dev, arch: str, cache, label: str = "serve") -> dict:
-    """One main path: the reduced model first, then ``arch`` at full width,
-    its engine sized by the plan of its decode shape (compiled through the
-    plan cache ``cache``), with every launch counter zeroed just before the
-    run and read just after it.  ``label`` names the phase in the output."""
+    """One main path: the reduced model first, then ``arch`` at full width
+    (at ``DEPTH[arch]`` layers where the path is cut in depth), its engine
+    sized by the plan of its decode shape (compiled through the plan cache
+    ``cache``), with every launch counter zeroed just before the run and
+    read just after it.  ``label`` names the phase in the output."""
     import torch
     from repro_torch import configs
     from repro_torch.models import lm
@@ -1152,14 +1285,14 @@ def phase_serve(dev, arch: str, cache, label: str = "serve") -> dict:
         check(seng.ring_blocks_freed > 0, "no window ring freed a block")
     check_clean(seng)
 
-    cfg = configs.get(arch)
+    cfg = cut_config(arch, DEPTH.get(arch))
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = lm.init_params(cfg, gen, dev, torch.float32)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    counts = param_counts(arch, cfg, params)
     init_s = time.perf_counter() - t0
     prompts = make_prompts(cfg, dev, seed=1)
     plan, compile_s = compile_serve_plan(cfg, cache)
@@ -1181,10 +1314,8 @@ def phase_serve(dev, arch: str, cache, label: str = "serve") -> dict:
     expect = expected_paged_launches(cfg, prefills, decode_steps)
     refs = plain_tokens(cfg, params, prompts, dev, torch.float32)
     rows = hold_against_plain(cfg, params, prompts, results, refs, dev)
-    extra = ({"reference_param_count": REFERENCE_PARAM_COUNT[arch]}
-             if arch in REFERENCE_PARAM_COUNT else {})
-    emit(label, arch=cfg.name, dtype="float32", params=n_params, **extra,
-         layers=cfg.n_layers, peak_memory_bytes=peak,
+    emit(label, arch=cfg.name, dtype="float32", **counts,
+         peak_memory_bytes=peak,
          init_seconds=init_s, plan_key=plan.key,
          sized_by_plan={"kv_len": eng.kv_len, "n_slots": eng.n_slots},
          requests=rows, prefills=prefills,
@@ -1808,7 +1939,7 @@ def phase_sampler(dev) -> dict:
     from repro_torch import configs
     from repro_torch.serve import sampling
     out = {}
-    for arch in (ARCH, SSM_ARCH, RG_ARCH):
+    for arch in (ARCH, SSM_ARCH, RG_ARCH, GEMMA_ARCH, CPM_ARCH):
         vocab = configs.get(arch).vocab_size
         gen = torch.Generator(device=dev).manual_seed(5)
         row = torch.randn((N_SLOTS, vocab), generator=gen, device=dev)
@@ -1925,8 +2056,8 @@ def to_bf16(tree: dict) -> dict:
 def time_serve(dev, served: dict) -> tuple:
     """The path's trace in bf16 (the f32 weights of phase ``serve`` cast,
     the float32-only SSD leaves kept): tokens/s, mean decode step and
-    prefill, peak memory, and a profiled repeat.  Returns (serve metrics,
-    bf16 params)."""
+    prefill, peak memory, and the profiled repeat (``profile_trace``).
+    Returns (serve metrics, bf16 params)."""
     import torch
 
     cfg, prompts = served["cfg"], served["prompts"]
@@ -1950,7 +2081,7 @@ def time_serve(dev, served: dict) -> tuple:
     serve["paged_bucket_chunk"] = time_mode(
         cfg, params, prompts, dev, SERVE_MODES["paged_bucket_chunk"])
     serve["sampled_spec"] = time_sample_spec(cfg, params, prompts, dev)
-    serve["profile"] = profile_serve(cfg, params, prompts, dev, wall)
+    serve["profile"] = profile_trace(cfg, params, prompts, dev, wall)
     return serve, params
 
 
@@ -2017,28 +2148,39 @@ def profiled_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     raise RuntimeError("the profiler recorded no kernel in three sessions")
 
 
-def profiled_kernels(fn) -> list:
-    """The names of the device kernels one call of ``fn`` launches."""
+def profiled_kernels(fn, iters: int = 5) -> list:
+    """The names of the device kernels that calls of ``fn`` launch,
+    recorded as ``profiled_ms`` records them.  A one-call session listed
+    none of a compiled ``flex_attention`` call's kernels, with or without
+    the CPU activity, so each session runs ``iters`` calls, and one that
+    kept no kernel is repeated, up to three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.key[:80] for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA})
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key[:80] for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA})
+        if names:
+            return names
+    return []
 
 
 def paged_timing(gen, dev, cfg, lens, max_blocks) -> dict:
-    """The paged kernel in bf16 at ``cfg``'s heads and window, one decode
-    step of lanes with contexts ``lens``, with the wrapper's own split."""
+    """The paged kernel in bf16 at ``cfg``'s heads, window and logit
+    softcap, one decode step of lanes with contexts ``lens``, with the
+    wrapper's own split."""
     import torch
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention import ref as pa_ref
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    win = cfg.window_size
+    win, cap = cfg.window_size, cfg.attn_logit_softcap
     B = len(lens)
     q, kp, vp, tbl, ln = paged_inputs(gen, dev, torch.bfloat16, B, H, KV,
                                       hd, BLOCK, max_blocks, lens)
@@ -2049,16 +2191,16 @@ def paged_timing(gen, dev, cfg, lens, max_blocks) -> dict:
     row = {
         "shape": {"B": B, "H": H, "KV": KV, "hd": hd, "bs": BLOCK,
                   "max_blocks": max_blocks, "context_lens": lens,
-                  "window": win, "dtype": "bfloat16",
+                  "window": win, "softcap": cap, "dtype": "bfloat16",
                   "n_split": pa_ops.choose_split(B, H, KV, max_blocks,
                                                  BLOCK, win, n_sm)},
-        "ms": time_ms(lambda: pa_ops.paged_attention(q, kp, vp, tbl, ln,
-                                                     window=win)),
+        "ms": time_ms(lambda: pa_ops.paged_attention(
+            q, kp, vp, tbl, ln, window=win, logit_softcap=cap)),
         "device_ms": profiled_ms(lambda: pa_ops.paged_attention(
-            q, kp, vp, tbl, ln, window=win)),
+            q, kp, vp, tbl, ln, window=win, logit_softcap=cap)),
         "plain_ms": time_ms(lambda: pa_ref.reference(
             q[:, None], kp, vp, tbl, ln, q_positions=(ln - 1)[:, None],
-            window=win)),
+            window=win, logit_softcap=cap)),
         "bytes": (2 * rows_used * KV * hd * 2 + 2 * q.numel() * 2
                   + sum(-(-n // BLOCK) for n in used) * 4 + B * 4),
         "flops": 4 * rows_used * H * hd,
@@ -2068,50 +2210,91 @@ def paged_timing(gen, dev, cfg, lens, max_blocks) -> dict:
     return set_bound(row)
 
 
+def flex_softcap(q, k, v, win: int, cap: float):
+    """One compiled ``flex_attention`` call over q, k, v ([B, heads, S,
+    hd], GQA): causal, inside ``win`` where one is set, with cap *
+    tanh(s / cap) on the scaled logits, the library call for a softcapped
+    config (SDPA has no softcap).  It is compiled here, once per shape,
+    on one compile thread (no worker processes)."""
+    import torch
+    import torch._inductor.config as inductor_config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    inductor_config.compile_threads = 1
+
+    def softcap(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    def visible(b, h, q_idx, kv_idx):
+        ok = q_idx >= kv_idx
+        return ok & (q_idx - kv_idx < win) if win else ok
+
+    S = q.shape[2]
+    mask = create_block_mask(visible, None, None, S, S, device=q.device)
+    fn = torch.compile(flex_attention, dynamic=False)
+    return lambda: fn(q, k, v, score_mod=softcap, block_mask=mask,
+                      enable_gqa=True)
+
+
 def flash_timing(gen, dev, cfg, S) -> dict:
-    """The flash kernel in bf16 at ``cfg``'s heads and window, one causal
-    S-row prompt, beside one ``scaled_dot_product_attention`` call (GQA
-    heads expanded; the window as a mask where it cuts the prompt), both
-    timed by CUDA events and by the profiler's device time."""
+    """The flash kernel in bf16 at ``cfg``'s heads, window and logit
+    softcap, one causal S-row prompt, beside one PyTorch call of the same
+    function, both timed by CUDA events and by the profiler's device time:
+    ``scaled_dot_product_attention`` (GQA heads expanded; the window as a
+    mask where it cuts the prompt), or for a softcapped config (gemma2),
+    which SDPA cannot compute, a compiled ``flex_attention``
+    (``flex_softcap``).  ``library_max_abs_err``: the library's output
+    against the kernel's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     H, KV, hd, dv = mla_dims(cfg)
-    win = cfg.window_size
+    win, cap = cfg.window_size, cfg.attn_logit_softcap
     q, k, v = flash_inputs(gen, dev, torch.bfloat16, 1, S, S, H, KV, hd, dv)
     pos = torch.arange(S, dtype=torch.int32, device=dev)
     # visible (query, key) pairs only: causal, inside the window
     pairs = sum(min(i + 1, win) if win else i + 1 for i in range(S))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    kt, vt = (x.repeat_interleave(H // KV, dim=1) for x in (kt, vt))
-    sdpa = {"is_causal": True}
-    if win and win < S:
-        dist = pos[:, None] - pos[None, :]
-        sdpa = {"attn_mask": (dist >= 0) & (dist < win)}
 
     def kernel():
         return fa_ops.flash_attention(q, k, v, q_positions=pos,
-                                      k_positions=pos, window=win)
+                                      k_positions=pos, window=win,
+                                      logit_softcap=cap)
 
-    def library():
-        return F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
+    if cap:
+        library = flex_softcap(qt, kt, vt, win, cap)
+    else:
+        kt, vt = (x.repeat_interleave(H // KV, dim=1) for x in (kt, vt))
+        sdpa = {"is_causal": True}
+        if win and win < S:
+            dist = pos[:, None] - pos[None, :]
+            sdpa = {"attn_mask": (dist >= 0) & (dist < win)}
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
 
     out_numel = q.numel() // hd * dv
     row = {
         "shape": {"B": 1, "Sq": S, "Skv": S, "H": H, "KV": KV, "hd": hd,
-                  "dv": dv, "causal": True, "window": win,
+                  "dv": dv, "causal": True, "window": win, "softcap": cap,
                   "dtype": "bfloat16", "grid": [-(-S // 64), H],
                   "tile": "64 query rows x 64 keys, one warpgroup"},
         "ms": time_ms(kernel),
         "device_ms": profiled_ms(kernel),
         "plain_ms": time_ms(lambda: fa_ref.reference(
-            q, k, v, q_positions=pos, k_positions=pos, window=win)),
+            q, k, v, q_positions=pos, k_positions=pos, window=win,
+            logit_softcap=cap)),
+        "library": "flex_attention" if cap else
+        "scaled_dot_product_attention",
         "library_ms": time_ms(library),
         "library_device_ms": profiled_ms(library),
-        # the kernels SDPA ran: its backend (flash, memory-efficient,
-        # cuDNN or math) by name
+        # the kernels the library ran: SDPA's backend (flash, memory-
+        # efficient, cuDNN or math) or flex's Triton kernel, by name
         "library_kernels": profiled_kernels(library),
+        "library_max_abs_err": float(
+            (library().transpose(1, 2).float() - kernel().float())
+            .abs().max()),
         # q, k, v and out once each in bf16, and the two position vectors
         "bytes": 2 * (q.numel() + k.numel() + v.numel() + out_numel)
         + 2 * 4 * S,
@@ -2203,10 +2386,11 @@ def rglru_timing(gen, dev, cfg, S) -> dict:
 
 
 def phase_kernel_timing(dev) -> dict:
-    """Both attention kernels at TinyLlama's, recurrentgemma's and
-    phi-3-vision's (hd 96) shapes (``{arch: rows}``; phi-3's prompt and
-    tables behind its 576 frontend rows), flash at deepseek-v2-lite's MLA
-    prefill shape, and
+    """Both attention kernels at TinyLlama's, recurrentgemma's,
+    phi-3-vision's (hd 96), command-r-35b's (hd 128, G 8), gemma2-9b's
+    (hd 256, G 2, softcap 50, window 4096) and minicpm-2b's (MHA, hd 64)
+    shapes (``{arch: rows}``; phi-3's prompt and tables behind its 576
+    frontend rows), flash at deepseek-v2-lite's MLA prefill shape, and
     the scans at mamba2-370m's and recurrentgemma-2b's (``{"scans":
     rows}``), each at the trace's 131-row prompt and at a 2048-row one.
     They run before any serve trace: the profiler's short sessions lose
@@ -2215,7 +2399,9 @@ def phase_kernel_timing(dev) -> dict:
     import torch
     from repro_torch import configs
     timing = {arch: attention_timing(dev, configs.get(arch), seed)
-              for arch, seed in ((ARCH, 99), (RG_ARCH, 97), (VLM_ARCH, 95))}
+              for arch, seed in ((ARCH, 99), (RG_ARCH, 97), (VLM_ARCH, 95),
+                                 (CR_ARCH, 94), (GEMMA_ARCH, 93),
+                                 (CPM_ARCH, 92))}
     # MLA's prefill shape (H = KV = 16, q/k 192, v 128): flash only, since
     # no kernel runs MLA's decode
     gen = torch.Generator(device=dev).manual_seed(96)
@@ -2310,29 +2496,30 @@ def time_bf16_trace(cfg, params, prompts, dev) -> dict:
                 sum(1 for s in tel.steps if s.active_slots))}
 
 
-def phase_timing_frontend(dev, served: dict) -> None:
-    """phi-3-vision's or seamless-m4t-medium's path: the bf16 trace (the
-    f32 weights of phase ``serve`` cast; ``time_bf16_trace``), then its
-    first PROFILE_PROMPTS requests for PROFILE_NEW tokens, untraced and
-    once more profiled (the busy share is that short trace's).  Flash must
-    run its tensor-core body."""
+def profile_trace(cfg, params, prompts, dev, wall: float) -> dict:
+    """The profiled repeat of a path's bf16 trace (``profile_serve``),
+    whose untraced run took ``wall`` seconds: the whole trace for the
+    paths in WHOLE_PROFILE, else the first PROFILE_PROMPTS requests for
+    PROFILE_NEW tokens, untraced and once more profiled (the busy share is
+    that short trace's).  ``trace`` names the one profiled."""
     import torch
-
-    cfg, prompts = served["cfg"], served["prompts"]
-    params = to_bf16(served.pop("params"))
-    torch.cuda.empty_cache()
-    serve = time_bf16_trace(cfg, params, prompts, dev)
+    if cfg.name in WHOLE_PROFILE:
+        out = profile_serve(cfg, params, prompts, dev, wall)
+        out["trace"] = {"requests": len(prompts), "max_new": MAX_NEW}
+        return out
     short = prompts[:PROFILE_PROMPTS]
     t0 = time.perf_counter()
     serve_trace(cfg, params, short, dev, torch.bfloat16, PROFILE_NEW)
     torch.cuda.synchronize()
-    serve["profile"] = profile_serve(cfg, params, short, dev,
-                                     time.perf_counter() - t0, PROFILE_NEW)
-    serve["profile"]["trace"] = {"requests": PROFILE_PROMPTS,
-                                 "max_new": PROFILE_NEW}
-    del params
-    emit("timing", arch=cfg.name, dtype="bfloat16", layers=cfg.n_layers,
-         serve=serve)
+    out = profile_serve(cfg, params, short, dev, time.perf_counter() - t0,
+                        PROFILE_NEW)
+    out["trace"] = {"requests": PROFILE_PROMPTS, "max_new": PROFILE_NEW}
+    return out
+
+
+def check_bf16_timing(serve: dict) -> None:
+    """The bf16 trace's launches against the serve formula, and flash on
+    its tensor-core body in the profiled repeat."""
     check(serve["launches"] == serve["expected_launches"],
           f"bf16 launches {serve['launches']} != expected "
           f"{serve['expected_launches']}")
@@ -2342,36 +2529,116 @@ def phase_timing_frontend(dev, served: dict) -> None:
           "tensor-core body")
 
 
-def phase_timing_ds(dev, served: dict) -> None:
-    """deepseek-v2-lite's path: the bf16 trace at full depth and width.
-    The f32 weights (63 GB) are freed first and the bf16 ones made from
-    the same seed (the f32 draws rounded, as a cast would give: the two
-    do not fit on the card together).  ``time_bf16_trace`` (flash per MLA
-    layer and prefill, nothing else) and a profiled repeat (device time by
-    kernel name, busy share, flash's device time per launch at q/k 192,
-    v 128)."""
+def phase_timing_fresh(dev, served: dict) -> None:
+    """The bf16 trace of a path after TinyLlama's three: the f32 weights
+    of phase ``serve`` are freed first and bf16 ones made from the same
+    seed (the f32 draws rounded, as a cast would give; for some paths the
+    two do not fit on the card together), at ``BF16_DEPTH[arch]`` layers,
+    else at the f32 gate's depth (command-r: 40 layers, 60.6 GB, beside an
+    f32 gate of 8).  ``time_bf16_trace`` and the profiled repeat
+    (``profile_trace``); the line gives the bf16 tree's parameter count,
+    its init time and the peak memory of the init."""
     import gc
 
     import torch
     from repro_torch.models import lm
 
-    cfg, prompts = served["cfg"], served["prompts"]
+    arch, prompts = served["cfg"].name, served["prompts"]
     del served["params"]
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = cut_config(arch, BF16_DEPTH.get(arch, served["cfg"].n_layers))
     gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
     params = lm.init_params(cfg, gen, dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
     serve = time_bf16_trace(cfg, params, prompts, dev)
-    serve["profile"] = profile_serve(cfg, params, prompts, dev,
+    serve["profile"] = profile_trace(cfg, params, prompts, dev,
                                      serve["wall_seconds"])
+    counts = param_counts(arch, cfg, params)
     del params
-    emit("timing", arch=cfg.name, dtype="bfloat16", layers=cfg.n_layers,
+    emit("timing", arch=cfg.name, dtype="bfloat16", **counts,
+         init_seconds=init_s, init_peak_memory_bytes=init_peak,
          serve=serve)
-    check(serve["launches"] == serve["expected_launches"],
-          f"bf16 launches {serve['launches']} != expected "
-          f"{serve['expected_launches']}")
-    check("flash_attention" in serve["profile"]["port_kernels"],
-          "the profiled bf16 trace launched no flash kernel")
+    check_bf16_timing(serve)
+
+
+def phase_long_request(dev, served: dict) -> dict:
+    """gemma2-9b's long request, f32 at full width: one LONG_PROMPT-token
+    prompt (past the 4,096-row window) for MAX_NEW tokens, alone in
+    ``ContinuousEngine(paged=True, kv_len=LONG_KV_LEN, n_slots=1)``, the
+    launch counters zeroed just before the run and read just after: flash
+    per attention layer for the one whole prefill (windowed past the
+    window on the sliding-window layers), paged per attention layer and
+    decode step.  The ring's peak blocks may not exceed the engine's
+    ``window_cap_blocks`` and blocks must fall behind the window during
+    decode; the tokens are held against the plain B=1 engine at the same
+    ``kv_len`` under the margin rule.  Returns the launches."""
+    import torch
+    from repro_torch.serve import ContinuousEngine
+
+    cfg, params = served["cfg"], served["params"]
+    gen = torch.Generator(device=dev).manual_seed(41)
+    prompt = torch.randint(0, cfg.vocab_size, (LONG_PROMPT,), generator=gen,
+                           device=dev).tolist()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = ContinuousEngine(cfg, params, kv_len=LONG_KV_LEN, n_slots=1,
+                           block_size=BLOCK, dtype=torch.float32,
+                           device=dev, paged=True)
+    alloc = eng.allocator
+    seen = {"ring_peak_blocks": 0, "global_peak_blocks": 0,
+            "ring_blocks_freed": 0}
+    slide = alloc.extend_window
+
+    def counted_slide(slot, n_tokens_total, **kw):
+        fresh, freed = slide(slot, n_tokens_total, **kw)
+        seen["ring_blocks_freed"] += len(freed)
+        seen["ring_peak_blocks"] = max(seen["ring_peak_blocks"],
+                                       len(alloc.window_tables[slot]))
+        seen["global_peak_blocks"] = max(seen["global_peak_blocks"],
+                                         len(alloc.tables[slot]))
+        return fresh, freed
+
+    alloc.extend_window = counted_slide
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    eng.submit(prompt, MAX_NEW, rid=0)
+    try:
+        results = eng.run()
+    finally:
+        del alloc.extend_window
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    tel = eng.telemetry
+    decode_steps = sum(1 for s in tel.steps if s.active_slots)
+    expect = expected_paged_launches(cfg, 1, decode_steps)
+    cap = alloc.layout.window_cap_blocks
+    refs = plain_tokens(cfg, params, [prompt], dev, torch.float32,
+                        kv_len=LONG_KV_LEN)
+    rows = hold_against_plain(cfg, params, [prompt], results, refs, dev)
+    emit("long_request", arch=cfg.name, dtype="float32",
+         prompt_len=LONG_PROMPT, max_new=MAX_NEW, kv_len=LONG_KV_LEN,
+         window=cfg.window_size, window_cap_blocks=cap, **seen,
+         requests=rows, decode_steps=decode_steps, launches=launches,
+         expected_launches=expect, wall_seconds=wall,
+         peak_memory_bytes=peak,
+         peak_resident_bytes_by_group=tel.peak_resident_bytes_by_group())
+    check(LONG_PROMPT > cfg.window_size,
+          "the long prompt does not pass the window")
+    check(0 < seen["ring_peak_blocks"] <= cap,
+          f"ring peak {seen['ring_peak_blocks']} blocks, cap {cap}")
+    check(seen["ring_blocks_freed"] > 0,
+          "no ring block fell behind the window")
+    check(launches == expect, f"launches {launches} != expected {expect}")
+    check(all(r["ok"] for r in rows), f"tokens diverged: {rows}")
+    check_clean(eng)
+    return launches
 
 
 def _value_and_grad(loss_fn, params, batch) -> tuple:
@@ -2653,6 +2920,7 @@ def main() -> int:
         t = done("sampler", t)
         timing, timing_rg = measured[ARCH], measured[RG_ARCH]
         timing_ds, timing_vlm = measured[DS_ARCH], measured[VLM_ARCH]
+        timing_cr = measured[CR_ARCH]
         timing.update(measured["scans"])
         # one path after the other, so that neither path's weights count
         # in the other's peak memory
@@ -2694,9 +2962,9 @@ def main() -> int:
             del served
             emit("adapt", arch=MLP_ARCH, seconds=time.perf_counter() - t0)
             t = done("serve+adapt", t)
-            # deepseek-v2-lite: MLA with the MoE FFN, flash at q/k 192 and
-            # v 128; no sample_spec, and only run (a) of prefix_router (the
-            # CPU tests cover the rest for this arch)
+            # deepseek-v2-lite (cut to DEPTH layers): MLA with the MoE FFN,
+            # flash at q/k 192 and v 128; no sample_spec, and only run (a)
+            # of prefix_router (the CPU tests cover the rest for this arch)
             phase = "serve"
             served = phase_serve(dev, DS_ARCH, cache)
             by_path[DS_ARCH] = served["launches"]
@@ -2710,7 +2978,7 @@ def main() -> int:
                     dev, served, only=("whole",)).items():
                 by_path[f"{DS_ARCH}/prefix_router/{run}"] = counts
             phase = "timing"
-            phase_timing_ds(dev, served)
+            phase_timing_fresh(dev, served)
             del served
             t = done(DS_ARCH, t)
             # the modality-frontend archs: phi-3-vision (576 projected
@@ -2728,7 +2996,33 @@ def main() -> int:
                 for mode, counts in phase_serve_modes(dev, served).items():
                     by_path[f"{arch}/{mode}"] = counts
                 phase = "timing"
-                phase_timing_frontend(dev, served)
+                phase_timing_fresh(dev, served)
+                del served
+                t = done(arch, t)
+            # the rest of the registry: gemma2-9b (window rings beside
+            # global tables, both softcaps) with its long request past the
+            # window, minicpm-2b, and command-r-35b and mixtral-8x7b (their
+            # f32 gates cut to DEPTH layers, their bf16 timing at
+            # BF16_DEPTH); serve_modes for gemma2 only, and
+            # their decode policies and fleets left to the CPU tests
+            for arch in (GEMMA_ARCH, CPM_ARCH, CR_ARCH, MX_ARCH):
+                phase = "serve"
+                served = phase_serve(dev, arch, cache)
+                by_path[arch] = served["launches"]
+                phase = "adapt"
+                phase_adapt(served, cache)
+                if arch == GEMMA_ARCH:
+                    phase = "serve_modes"
+                    for mode, counts in phase_serve_modes(dev,
+                                                          served).items():
+                        by_path[f"{arch}/{mode}"] = counts
+                    phase = "long_request"
+                    by_path[f"{arch}/long_request"] = phase_long_request(
+                        dev, served)
+                else:
+                    served.pop("small")
+                phase = "timing"
+                phase_timing_fresh(dev, served)
                 del served
                 t = done(arch, t)
         # each kernel's launches over the paths' runs, and by path
@@ -2771,6 +3065,10 @@ def main() -> int:
         if name in timing_rg:        # the attention kernels at hd 256
             row["hd256"] = {k: timing_rg[name][k] for k in timed + device}
             row["long_hd256"] = {k: timing_rg[name + "_long"][k]
+                                 for k in timed + device}
+        if name in timing_cr:        # the attention kernels at hd 128
+            row["hd128"] = {k: timing_cr[name][k] for k in timed + device}
+            row["long_hd128"] = {k: timing_cr[name + "_long"][k]
                                  for k in timed + device}
         if name in timing_vlm:       # the attention kernels at hd 96
             row["hd96"] = {k: timing_vlm[name][k] for k in timed + device}

@@ -34,6 +34,8 @@ Usage (on the CUDA card; ``--device cpu`` runs the plain versions):
         --arch phi-3-vision-4.2b --continuous --paged
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch seamless-m4t-medium --continuous --paged --chunk-prefill 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
+        --continuous --paged --bucket --chunk-prefill 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --continuous --paged --adapt --devices 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
@@ -64,6 +66,15 @@ Usage (on the CUDA card; ``--device cpu`` runs the plain versions):
         --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-mlp \
         --reduced --continuous --paged --adapt --devices 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
+        --reduced --continuous --paged --bucket --chunk-prefill 16 \
+        --prompt-len 40 --kv-len 96 --device cpu
+
+Every arch of ``repro_torch.configs.available()`` serves: gemma2-9b's
+sliding-window layers page through window rings beside its global
+layers' tables, mixtral-8x7b's through rings alone (with the MoE FFN);
+both refuse ``--prefix-cache`` and serve ``--disaggregate`` as
+co-located replicas.  minicpm-2b and command-r-35b take every flag.
 
 A modality-frontend arch's paged lanes hold its frontend rows ahead of the
 prompt, so ``--kv-len`` plus those rows must be a multiple of the block

@@ -40,12 +40,28 @@ IMPLS = ("kernel", "plain")
 # initializers / norms / rope
 # =============================================================================
 
+def normal_init(gen: torch.Generator, shape: tuple, std: float, dtype,
+                device) -> torch.Tensor:
+    """N(0, std^2) values of ``shape`` in ``dtype``, drawn in f32 one
+    leading index at a time (a stacked leaf's layer; a single matrix's
+    block of an eighth of its rows) and rounded into the leaf, so that no
+    leaf needs an f32 copy of itself: a full-width stack in f32 is tens of
+    GB beside its bf16 leaf."""
+    w = torch.empty(shape, dtype=dtype, device=device)
+    rows = w.view(-1, shape[-1]) if w.dim() > 1 else w.view(1, -1)
+    step = (rows.shape[0] // shape[0] if w.dim() > 2 and shape[0] > 1
+            else -(-rows.shape[0] // 8))
+    for part in rows.split(max(step, 1)):
+        part.copy_(torch.randn(part.shape, generator=gen, device=device,
+                               dtype=torch.float32).mul_(std))
+    return w
+
+
 def dense_init(gen: torch.Generator, shape: tuple, dtype,
                device) -> torch.Tensor:
-    """Normal / sqrt(d_in) weights of ``shape`` (..., d_in, d_out)."""
-    w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    # in place: a full-width expert stack is tens of GB in f32
-    return w.mul_(1.0 / math.sqrt(shape[-2])).to(dtype)
+    """Normal / sqrt(d_in) weights of ``shape`` (..., d_in, d_out)
+    (``normal_init``)."""
+    return normal_init(gen, shape, 1.0 / math.sqrt(shape[-2]), dtype, device)
 
 
 class _RMSNorm(torch.autograd.Function):

@@ -47,19 +47,19 @@ from .config import LayerSpec, ModelConfig, Segment
 _MIXER_GROUP = {"global": "paged", "mla": "paged", "local": "window",
                 "ssd": "recurrent", "rglru": "recurrent"}
 # layer kinds the port runs
-_PORTED = frozenset({"global+dense", "local+dense", "ssd+none",
-                     "rglru+dense", "mla+dense", "mla+moe"})
+_PORTED = frozenset({"global+dense", "local+dense", "local+moe",
+                     "ssd+none", "rglru+dense", "mla+dense", "mla+moe"})
 _STATE_MIXERS = ("ssd", "rglru")
 MODES = ("prefill", "decode", "train")
 
 
 def unsupported_reason(cfg: ModelConfig) -> Optional[str]:
-    """Why the port cannot run ``cfg`` yet, or None: it runs stacks of
-    global- or sliding-window-attention layers and RG-LRU layers (each
-    with a dense FFN), SSD layers and MLA layers (with a dense or an MoE
-    FFN), decoder-only, behind a modality frontend or under an encoder.
-    Other layer kinds, such as sliding-window attention with an MoE FFN,
-    are refused."""
+    """Why the port cannot run ``cfg``, or None: it runs stacks of global-
+    attention and RG-LRU layers (each with a dense FFN), sliding-window
+    attention and MLA layers (with a dense or an MoE FFN) and SSD layers,
+    decoder-only, behind a modality frontend or under an encoder: every
+    arch of the reference's registry.  Other layer kinds, such as global
+    attention with an MoE FFN, are refused."""
     other = sorted({s.key for s in cfg.layers()} - _PORTED)
     if other:
         return f"layer kinds {other} are not ported yet"
@@ -115,10 +115,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     _check_supported(cfg)
     device = resolve_device(device)
     d = cfg.d_model
-    embed = torch.randn((cfg.padded_vocab, d), generator=generator,
-                        device=device, dtype=torch.float32) * 0.02
     params: dict = {
-        "embed": embed.to(dtype),
+        "embed": blocks.normal_init(generator, (cfg.padded_vocab, d), 0.02,
+                                    dtype, device),
         "final_norm": torch.zeros((d,), dtype=dtype, device=device),
     }
     if not cfg.tie_embeddings:

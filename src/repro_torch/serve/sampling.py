@@ -155,10 +155,22 @@ def uniform(key: torch.Tensor, n: int, minval: float = 0.0,
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """The natural log of an f32 tensor, correctly rounded: taken in f64
+    and rounded to f32 once.  An f32 ``torch.log`` is host-dependent: on
+    the CPU it is MKL's, whose rounding differs between the code paths
+    MKL picks by CPU model (an ulp here and there), and on the card it is
+    CUDA's ``logf``.  The rounded f64 log is the same on every host and
+    on the card (barring an f64 result within an f64 ulp of an f32
+    rounding boundary), and XLA's f32 log is within an ulp of it."""
+    return torch.log(x.double()).float()
+
+
 def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.gumbel`` in its "low" mode: ``-log(-log(u))`` with
-    ``u`` uniform in [tiny, 1)."""
-    return -torch.log(-torch.log(uniform(key, n, _TINY, 1.0)))
+    ``u`` uniform in [tiny, 1), each log correctly rounded to f32
+    (``log_f32``)."""
+    return -log_f32(-log_f32(uniform(key, n, _TINY, 1.0)))
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:

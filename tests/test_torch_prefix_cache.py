@@ -17,7 +17,8 @@ reduced sizes in f32.
   with a shared prefix, a repeated prompt and a block-aligned duplicate:
   each request's tokens equal the JAX ``ContinuousEngine(prefix_cache=
   True)``'s and the port's B=1 ``Engine``'s, with equal ``prefix_stats``
-  and hit rate.
+  and hit rate; minicpm-2b (whole, chunk 8) and command-r-35b (whole,
+  bucketed) on the same trace.
 * The refusals with the reference's messages, and the export, evict and
   import aliasing of the block handoff.
 
@@ -416,6 +417,11 @@ ROWS = {
     "speculate2": {"speculate": 2},
     "lazy": {"pricing": "lazy", "cache_blocks": 5},
 }
+# minicpm and command-r have TinyLlama's layer structure (global attention,
+# a dense FFN) at other head shapes: two rows each
+CASES = [(a, r) for a in ARCHS for r in ROWS] + [
+    ("minicpm-2b", "whole"), ("minicpm-2b", "chunk8"),
+    ("command-r-35b", "whole"), ("command-r-35b", "bucketed")]
 
 
 def _trace(vocab, seed=0) -> tuple:
@@ -459,8 +465,7 @@ def _serve(eng, trace) -> dict:
     return eng.run()
 
 
-@pytest.mark.parametrize("row", list(ROWS))
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,row", CASES)
 def test_prefix_cache_matrix_matches_the_reference(pairs, arch, row):
     jcfg, cfg, jp, tp, trace, expects = pairs(arch)
     kw = dict(kv_len=KV_LEN, n_slots=2, paged=True, prefix_cache=True,

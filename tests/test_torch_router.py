@@ -44,7 +44,8 @@ KV_LEN = 64
 PROMPT_LENS = (5, 9, 13, 33)        # 33 spans two full 16-token blocks
 BUDGETS = (4, 6, 5, 3)
 ARCHS = ("tinyllama-1.1b", "paper-mlp", "mamba2-370m", "recurrentgemma-2b",
-         "deepseek-v2-lite-16b")
+         "deepseek-v2-lite-16b", "minicpm-2b", "command-r-35b", "gemma2-9b",
+         "mixtral-8x7b")
 MLP = "paper-mlp"
 
 
@@ -98,10 +99,12 @@ def _both(setup, arch, **kw) -> tuple:
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_routed_fleet_matches_the_reference(setup, arch):
-    """Disaggregation requested for every arch: TinyLlama and paper-mlp
-    split prefill from decode and hand blocks over; mamba2 and
-    recurrentgemma degrade to co-located replicas with the reference's
-    reason.  Tokens equal the JAX router's and the B=1 engine's."""
+    """Disaggregation requested for every arch: TinyLlama, paper-mlp,
+    deepseek, minicpm and command-r split prefill from decode and hand
+    blocks over; mamba2, recurrentgemma, gemma2 and mixtral (window rings
+    or recurrent state) degrade to co-located replicas with the
+    reference's reason.  Tokens equal the JAX router's and the B=1
+    engine's."""
     _, cfg, _, _, prompts, expects = setup(arch)
     router, jrouter = _both(setup, arch, n_replicas=2, disaggregate=True,
                             kv_len=KV_LEN, n_slots=2, paged=True,

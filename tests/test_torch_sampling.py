@@ -4,8 +4,9 @@ reference's (``repro.serve.sampling``) on the CPU, in f32.
 * The PRNG, bit for bit: ``prng_key``, ``fold_in``, ``token_key``, the
   random bits and the uniforms equal ``jax.random``'s over several seeds,
   positions, streams and draw lengths (the reduced vocab of 512 and
-  TinyLlama's 32,000).  Gumbel noise: each of its two logs is within one
-  ulp of XLA's, so the noise is within 2^-23 + 1 ulp.
+  TinyLlama's 32,000).  Gumbel noise: each of its two logs is the f64
+  log rounded to f32 (the same on every host), within one ulp of XLA's,
+  so the noise is within 2^-23 + 1 ulp.
 * The sampler, row by row as ``tests/test_serve_sampling.py`` has them:
   support sets, the greedy limit, seed semantics, batched against single
   lanes, speculative acceptance; and equal to the reference on fixed
@@ -18,6 +19,9 @@ reference's (``repro.serve.sampling``) on the CPU, in f32.
 
 Seeds are fixed; no Hypothesis.
 """
+
+import os
+import platform
 
 import jax
 import jax.numpy as jnp
@@ -116,20 +120,77 @@ def test_batched_keys_draw_as_single_keys():
                               bits[i].numpy())
 
 
+def _host() -> str:
+    """What decides the host's float results: torch's CPU code path and
+    threads, the processor, and the environment's CPU-dispatch settings
+    (a failure message carries it)."""
+    env = {k: v for k, v in os.environ.items()
+           if k.startswith(("ATEN_CPU", "MKL_", "OMP_", "XLA_"))}
+    return (f"cpu capability {torch.backends.cpu.get_cpu_capability()}, "
+            f"{torch.get_num_threads()} threads, processor "
+            f"{platform.processor() or platform.machine()!r}, env {env}")
+
+
+def _worst(got, exp) -> str:
+    """The element furthest from ``exp`` in ulps: its index and values."""
+    got, exp = np.asarray(got, np.float32), np.asarray(exp, np.float32)
+    sp = np.spacing(np.maximum(np.abs(got), np.abs(exp)))
+    i = int(np.argmax(np.abs(got.astype(np.float64) - exp) / sp))
+    return f"worst at {i}: {got[i]!r} against {exp[i]!r}"
+
+
+def _f32_roundings(v64):
+    """The f32 roundings of the f64 values two f64 ulps either side of
+    ``v64``: equal except where ``v64`` lies that close to an f32 rounding
+    boundary, where a faithful f64 log on another host may round either
+    way."""
+    lo = np.nextafter(np.nextafter(v64, -np.inf), -np.inf)
+    hi = np.nextafter(np.nextafter(v64, np.inf), np.inf)
+    return lo.astype(np.float32), hi.astype(np.float32)
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_gumbel_within_one_ulp_per_log(seed):
+    """Each of the port's two logs (``log_f32``, not the host's f32
+    ``torch.log``, whose rounding depends on the CPU's MKL code path) is
+    within one ulp of XLA's on the same input, and the noise within
+    2^-23 + 1 ulp of ``jax.random.gumbel``.  A failure names its assertion
+    and the host."""
     jk, tk = jax.random.PRNGKey(seed), _key(seed)
     n = 32000
     tiny = np.finfo(np.float32).tiny
     u = _np(jax.random.uniform(jk, (n,), minval=tiny, maxval=1.0))
     inner_j = _np(-jnp.log(u))
-    inner_t = (-torch.log(torch.from_numpy(u))).numpy()
-    assert _ulps(inner_t, inner_j) <= 1.0
-    outer_t = (-torch.log(torch.from_numpy(inner_j))).numpy()
-    assert _ulps(outer_t, _np(-jnp.log(inner_j))) <= 1.0
+    inner_t = (-ts.log_f32(torch.from_numpy(u))).numpy()
+    assert _ulps(inner_t, inner_j) <= 1.0, \
+        f"inner log: {_worst(inner_t, inner_j)}; {_host()}"
+    outer_j = _np(-jnp.log(inner_j))
+    outer_t = (-ts.log_f32(torch.from_numpy(inner_j))).numpy()
+    assert _ulps(outer_t, outer_j) <= 1.0, \
+        f"outer log: {_worst(outer_t, outer_j)}; {_host()}"
     got, exp = ts.gumbel(tk, n).numpy(), _np(jax.random.gumbel(jk, (n,)))
     bar = 2.0 ** -23 + np.spacing(np.abs(exp))
-    assert (np.abs(got.astype(np.float64) - exp) <= bar).all()
+    assert (np.abs(got.astype(np.float64) - exp) <= bar).all(), \
+        f"noise: {_worst(got, exp)}; {_host()}"
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gumbel_logs_are_correctly_rounded(seed):
+    """The port's noise does not depend on the host: each log is the f64
+    log rounded to f32 (numpy's f64 log, within two f64 ulps where the
+    rounding is that close to a boundary), and the noise is the two logs
+    composed, bit for bit."""
+    tk = _key(seed)
+    n = 32000
+    u = ts.uniform(tk, n, np.finfo(np.float32).tiny, 1.0)
+    inner = -ts.log_f32(u)
+    noise = -ts.log_f32(inner)
+    for x, got in ((u, -inner), (inner, -noise)):
+        lo, hi = _f32_roundings(np.log(x.numpy().astype(np.float64)))
+        got = got.numpy()
+        assert ((got == lo) | (got == hi)).all(), \
+            f"{_worst(got, lo)}; {_host()}"
+    assert torch.equal(ts.gumbel(tk, n), noise)
 
 
 @pytest.mark.parametrize("seed", range(6))

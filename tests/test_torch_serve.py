@@ -104,9 +104,10 @@ def test_serve_groups_match_reference():
     """The per-layer cache-group report over every registry arch (ported
     configs built from the reference's fields), the enc-dec cross overlay
     included, and the port's refusal of every arch with a layer kind other
-    than global or sliding-window attention or RG-LRU with a dense FFN,
-    SSD with no FFN, or MLA with a dense or an MoE FFN, whether
-    decoder-only, behind a modality frontend or under an encoder."""
+    than global attention or RG-LRU with a dense FFN, sliding-window
+    attention or MLA with a dense or an MoE FFN, or SSD with no FFN,
+    whether decoder-only, behind a modality frontend or under an encoder:
+    every arch of the registry runs."""
     from repro.models.config import ModelConfig as JModelConfig
     from repro_torch.models.config import ModelConfig
     for name in jconfigs.available():
@@ -118,9 +119,9 @@ def test_serve_groups_match_reference():
                                         ("paged", "window", "recurrent",
                                          "cross")}
         plain = {s.key for s in cfg.layers()} <= {
-            "global+dense", "local+dense", "ssd+none", "rglru+dense",
-            "mla+dense", "mla+moe"}
-        assert (lm.unsupported_reason(cfg) is None) == plain, name
+            "global+dense", "local+dense", "local+moe", "ssd+none",
+            "rglru+dense", "mla+dense", "mla+moe"}
+        assert plain and lm.unsupported_reason(cfg) is None, name
     assert lm.unsupported_reason(configs.get(SSM_ARCH)) is None
 
 
@@ -249,11 +250,11 @@ def test_engines_refuse_what_is_not_ported(models):
     with pytest.raises(ValueError, match="divisible"):
         ContinuousEngine(cfg, tp, paged=True, kv_len=40, block_size=16,
                          device="cpu")
-    window_moe = cfg.replace(layer_cycle=(("local", "moe"),),
-                             window_size=32, n_experts=4,
+    # no arch of the registry has global attention with an MoE FFN
+    global_moe = cfg.replace(layer_cycle=(("global", "moe"),), n_experts=4,
                              experts_per_token=2, d_ff_expert=64)
     with pytest.raises(NotImplementedError, match="not ported"):
-        Engine(window_moe, tp, **kw)
+        Engine(global_moe, tp, **kw)
 
 
 def test_entry_points_need_a_card_unless_told_cpu(models, monkeypatch):

@@ -1,6 +1,8 @@
 """The port's serving modes against the JAX package, on the CPU at the
-reduced TinyLlama, mamba2-370m and recurrentgemma-2b sizes in f32: dense
-lanes, bucketed prefill and chunked prefill.
+reduced TinyLlama, mamba2-370m, recurrentgemma-2b and deepseek-v2-lite
+sizes in f32 (the mode matrix also at the reduced gemma2-9b, minicpm-2b,
+command-r-35b and mixtral-8x7b): dense lanes, bucketed prefill, chunked
+prefill and greedy speculation.
 
 Same weights (``repro.models.lm.init_params`` output carried across by
 ``repro_torch.convert``) and the same numpy-seeded inputs through both
@@ -8,10 +10,11 @@ packages:
 
 * the mode matrix of ``tests/test_serve_arch_matrix.py`` (its ``KV_LEN``,
   prompt lengths, budgets and chunk sizes): every arch x {dense,
-  dense_bucket, paged, paged_bucket, paged_chunk, paged_bucket_chunk}
-  gives each request the tokens of the port's B=1 ``Engine`` and of the
-  JAX ``Engine``, and recurrentgemma's chunked engine the JAX engine's
-  per-step telemetry;
+  dense_bucket, paged, paged_bucket, paged_chunk, paged_bucket_chunk,
+  paged_spec} gives each request the tokens of the port's B=1 ``Engine``
+  and of the JAX ``Engine``, the paged modes hold the reference's cache
+  groups (a window ring, a global table or both), and recurrentgemma's
+  chunked engine the JAX engine's per-step telemetry;
 * step level: ``make_bucketed_prefill_step`` and ``make_chunk_prefill_step``
   (token, logits, cache leaves within atol = rtol = 1e-5; recurrent state
   leaves within 1e-4, the JAX scan tests' bar), ``ssd_layer`` and
@@ -49,6 +52,9 @@ from repro_torch.serve.cache import BlockAllocator, CacheConfig, CacheLayout
 torch.set_num_threads(2)
 ARCHS = ("tinyllama-1.1b", "mamba2-370m", "recurrentgemma-2b",
          "deepseek-v2-lite-16b")
+# the rest of the registry, in the mode matrix only
+MATRIX_ARCHS = ARCHS + ("gemma2-9b", "minicpm-2b", "command-r-35b",
+                        "mixtral-8x7b")
 KV_LEN = 64
 PROMPT_LENS = (5, 9, 13, 33)
 BUDGETS = (4, 6, 5, 3)
@@ -61,6 +67,7 @@ MODES = {
     # 7 does not divide kv_len: pad rows past the table's reach
     "paged_bucket_chunk": {"paged": True, "bucket_prompts": True,
                            "prefill_chunk": 7},
+    "paged_spec": {"paged": True, "speculate": 4},
 }
 TOL = 1e-5
 STATE_TOL = 1e-4
@@ -126,7 +133,7 @@ def _close_trees(got, exp, skip_last_page=False):
 # =============================================================================
 
 @pytest.mark.parametrize("mode", sorted(MODES))
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", MATRIX_ARCHS)
 def test_mode_matrix_matches_both_engines(setup, arch, mode):
     jcfg, cfg, jp, tp, prompts, expects = setup(arch)
     oracle = Engine(cfg, tp, kv_len=KV_LEN, device="cpu")
@@ -149,6 +156,15 @@ def test_mode_matrix_matches_both_engines(setup, arch, mode):
     assert chunks == (sum(-(-n // chunk) for n in PROMPT_LENS) if chunk
                       else 0)
     assert (tel.mean_chunk_ms() > 0) == bool(chunk)
+    if MODES[mode].get("paged"):
+        groups = jlm.serve_groups(jcfg)
+        peaks = tel.peak_resident_bytes_by_group()
+        assert (peaks.get("global", 0) > 0) == bool(groups["paged"]), peaks
+        assert (peaks.get("window", 0) > 0) == bool(groups["window"]), peaks
+    if MODES[mode].get("speculate"):
+        assert tel.total_drafted() > 0
+        accepted = sum(s.accepted for s in tel.steps)
+        assert tel.total_rewound_tokens() == tel.total_drafted() - accepted
 
 
 def test_chunked_engine_steps_match_jax_engine(setup):

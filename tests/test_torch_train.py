@@ -3,7 +3,8 @@ step's loss, grad norm and gradients, a 5-step trajectory, gradient
 accumulation, rematerialisation, the launcher with checkpoints and resume,
 and the kernel wrappers' refusal of inputs that require grad.
 
-The four ported configs, reduced, in f32, start from the reference's
+The five configs (gemma2-9b: both softcaps, GeGLU, ``emb_scale``, window
+layers beside global ones), reduced, in f32, start from the reference's
 ``lm.init_params`` (carried across by ``repro_torch.convert``) and see the
 same ``SyntheticLM`` batches (B 2, S 48: the reduced recurrentgemma's
 window of 32 is shorter than the sequence).  The reference trains on its
@@ -42,7 +43,8 @@ from repro_torch.models import lm
 from repro_torch.train import TrainStepConfig, make_train_step, value_and_grad
 from repro_torch.tree import flatten, tree_map
 
-ARCHS = ("tinyllama-1.1b", "mamba2-370m", "recurrentgemma-2b", "paper-mlp")
+ARCHS = ("tinyllama-1.1b", "mamba2-370m", "recurrentgemma-2b", "paper-mlp",
+         "gemma2-9b")
 SEQ, BATCH = 48, 2
 LOSS_RTOL, GNORM_RTOL, LEAF_FRAC, TRAJ_RTOL = 1e-5, 1e-4, 1e-4, 1e-4
 
