@@ -251,24 +251,48 @@ exit code:
 8. train   — single-card training, after the serving paths, with every
    launch counter zeroed before it and required to stay at zero (training
    runs the plain layers under autograd; no kernel has a backward).
-   (a) The card against the host CPU: each of the four configs cut to one
-   cycle repeat at its published widths, one f32 ``loss_fn`` + autograd
-   step at B 2, S 64 from the same weights and batch on both; loss within
-   1e-5 relative, grad norm within 1e-4 relative, every gradient leaf
-   within 1e-4 of that leaf's max-abs.  (b) Full depth and width in bf16
-   through ``repro_torch.launch.train.main``: TinyLlama B 8, S 512, 20
-   steps at ``--lr 3e-3`` cosine (the mean of its last 5 losses must be
-   0.2 under that of its first 5), Mamba-2 B 4, S 512, RecurrentGemma
-   B 2, S 256 and paper-mlp B 8, S 512, 5 steps each at the launcher's
-   defaults; every loss and grad norm finite and every parameter leaf
-   moved; the line gives the median step (``Telemetry``), tokens/s, peak
-   device memory, model FLOP/s (6 x parameters x tokens per second) as a
-   share of the 989 TFLOP/s bf16 peak, and the plan's modelled step time.
+   (a) The card against the host CPU: each of the four configs of PR 23
+   and mixtral-8x7b, phi-3-vision-4.2b and seamless-m4t-medium cut to one
+   cycle repeat (deepseek-v2-lite-16b to 2 layers: its dense first layer
+   and one MoE layer) at its published widths, one f32 ``loss_fn`` +
+   autograd step at B 2, S 64 (with the frontend archs' stub rows) from
+   the same weights (drawn on the card, copied to the host) and batch on
+   both; loss and the MoE aux loss within 1e-5 relative, grad norm within
+   1e-4 relative, every gradient leaf within 1e-4 of that leaf's max-abs.
+   (b) Full width in bf16 through ``repro_torch.launch.train.main``:
+   TinyLlama B 8, S 512, 20 steps at ``--lr 3e-3`` cosine (the mean of its
+   last 5 losses must be 0.2 under that of its first 5), Mamba-2 B 4, S
+   512, RecurrentGemma B 2, S 256 and paper-mlp B 8, S 512, 5 steps each at
+   the launcher's defaults, at full depth; then deepseek-v2-lite-16b (cut
+   to 6 of 27 layers, ``--layers``), mixtral-8x7b (2 of 32), phi-3-vision
+   (full depth, 576 stub image rows ahead of each sequence) and
+   seamless-m4t-medium (full depth, 1,024 stub frames), 5 steps each
+   (``TRAIN_RUNS``); every loss and grad norm finite and every parameter
+   leaf moved; the line gives the median step (``Telemetry``), tokens/s,
+   peak device memory, the aux losses, model FLOP/s (6 x parameters x
+   tokens per second) as a share of the 989 TFLOP/s bf16 peak, and the
+   plan's modelled step time.
    (c) Gradient accumulation: full TinyLlama in f32, B 4, S 256,
    ``grad_accum=2`` against 1, |d loss| < 1e-4 and max |d param| < 5e-3
    (the reference's bars).  (d) Resume: full paper-mlp in f32 through the
    launcher, 6 steps straight against 3 steps, a checkpoint, and 3 more
    with ``--resume``; the losses of steps 4-6 within 1e-5 relative.
+
+9. pipeline — the GPipe pipeline (``repro_torch.train.
+   make_pipeline_train_step``), last, with every launch counter zeroed
+   before it and required to stay at zero.  Its stages go on distinct
+   cards when the machine has more than one, and share the card
+   otherwise; each line says which.  (a) Full TinyLlama in f32, 22 layers
+   in 2 stages and in 11, M = 4, B 8, S 256: loss within 1e-5 relative
+   and every gradient leaf (joined back) within 1e-4 of its max-abs of the
+   one-card train step's.  (b) Mixtral-8x7b cut to 2 layers in f32, 2
+   stages, M = 2, B 4, S 64: the same on the card and on the host CPU at
+   the same weights, at the same bars.  (c) bf16 TinyLlama, B 8, S 512:
+   the median of 3 train steps through the pipeline (2 stages) at M = 4
+   and M = 8 beside the one-card step at the same batch.  With the stages
+   on one card a pipeline step does the one-card step's work in M
+   microbatches one after another, so its time over the one-card step's
+   is the schedule's host cost, not an overlap across cards.
 
 Then the ``{"kernels": [...]}`` summary line (paged and flash attention at
 TinyLlama's hd 64, with recurrentgemma's hd 256, phi-3-vision's hd 96,
@@ -393,10 +417,25 @@ SSD_CHUNK = 32          # the chunk ssd_cost counts C B^T over
 # recurrentgemma's, phi-3-vision's, command-r-35b's and gemma2-9b's heads
 HEAD_SHAPES = ((64, 32, 4, ""), (256, 10, 1, ""), (96, 32, 32, ""),
                (128, 64, 8, "_h64kv8"), (256, 16, 8, "_h16kv8"))
-# phase train (b): (arch, batch, seq, steps, extra launcher flags)
+# phase train (a): (arch, layers: None for one cycle repeat); deepseek's
+# first segment is one dense layer, so 2 layers reach an MoE layer
+TRAIN_CHECKS = ((ARCH, None), (SSM_ARCH, None), (RG_ARCH, None),
+                (MLP_ARCH, None), (DS_ARCH, 2), (MX_ARCH, None),
+                (VLM_ARCH, None), (ED_ARCH, None))
+# phase train (b): (arch, batch, seq, steps, extra launcher flags); the
+# depth cuts keep bf16 parameters, gradients, two f32 moments and the
+# activations inside 80 GB (deepseek at 27 layers is 15.7 B parameters,
+# mixtral at 32 is 46.7 B: 189 and 560 GB of training state)
 TRAIN_RUNS = ((ARCH, 8, 512, 20, ("--lr", "3e-3", "--schedule", "cosine")),
               (SSM_ARCH, 4, 512, 5, ()), (RG_ARCH, 2, 256, 5, ()),
-              (MLP_ARCH, 8, 512, 5, ()))
+              (MLP_ARCH, 8, 512, 5, ()),
+              (DS_ARCH, 4, 512, 5, ("--layers", str(DEPTH[DS_ARCH]))),
+              (MX_ARCH, 4, 512, 5, ("--layers", "2")),
+              (VLM_ARCH, 2, 512, 5, ()), (ED_ARCH, 4, 512, 5, ()))
+# phase pipeline: stage counts of full TinyLlama (22 layers), microbatches
+PIPE_STAGES = (2, 11)
+PIPE_MICRO = 4
+PIPE_TIMED_MICRO = (4, 8)
 
 
 def emit(phase: str, **fields) -> None:
@@ -1181,9 +1220,9 @@ def hold_against_plain(cfg, params, prompts, results, refs, dev,
                "divergence_index": div, "margin": None}
         if div is not None:
             seq = torch.tensor([p + ref[:div]], device=dev)
-            logits, _ = lm.forward(cfg, params, seq, frontend_emb=fe,
-                                   mode="prefill", impl="plain",
-                                   moe_lossless=True)
+            logits, _, _ = lm.forward(cfg, params, seq, frontend_emb=fe,
+                                      mode="prefill", impl="plain",
+                                      moe_lossless=True)
             top2 = logits[0, -1, :cfg.vocab_size].float().topk(2).values
             row["margin"] = (top2[0] - top2[1]).item()
             row["ok"] = row["margin"] < MARGIN
@@ -1511,8 +1550,8 @@ def sampled_margin(cfg, params, prompt, ref, div, seed, dev) -> float:
     from repro_torch.models import lm
     from repro_torch.serve import sampling
     seq = torch.tensor([prompt + ref[:div]], device=dev)
-    logits, _ = lm.forward(cfg, params, seq, mode="prefill", impl="plain",
-                           moe_lossless=True)
+    logits, _, _ = lm.forward(cfg, params, seq, mode="prefill", impl="plain",
+                              moe_lossless=True)
     row = logits[0, -1, :cfg.vocab_size].float() / SAMPLED["temperature"]
     key = sampling.token_key(sampling.prng_key(seed, dev), len(prompt) + div)
     z = sampling.filter_logits(row, SAMPLED["top_k"], SAMPLED["top_p"]) + \
@@ -2642,20 +2681,33 @@ def phase_long_request(dev, served: dict) -> dict:
 
 
 def _value_and_grad(loss_fn, params, batch) -> tuple:
-    """(loss, {path: gradient}) of ``loss_fn`` at ``params``."""
+    """(loss, metrics, {path: gradient}) of ``loss_fn`` at ``params``."""
     from repro_torch.train import value_and_grad
     from repro_torch.tree import flatten
-    loss, _, grads = value_and_grad(loss_fn, params, batch)
-    return loss, {path: g for (path, _), g in zip(flatten(params), grads)}
+    loss, metrics, grads = value_and_grad(loss_fn, params, batch)
+    return loss, metrics, {path: g for (path, _), g
+                           in zip(flatten(params), grads)}
 
 
 def _device_batch(cfg, seq, batch, seed, dev) -> dict:
+    """``SyntheticLM``'s first batch on ``dev``, with stub frontend rows
+    for a modality-frontend or enc-dec config."""
     import torch
     from repro_torch.data import DataConfig, SyntheticLM
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
-                                  global_batch=batch, seed=seed))
+    data = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+        seed=seed, frontend_tokens=cfg.frontend_tokens if cfg.frontend else 0,
+        frontend_dim=cfg.frontend_dim if cfg.frontend else 0))
     return {k: torch.from_numpy(v).to(dev)
             for k, v in data.batch_at(0).items()}
+
+
+def _leaf_err(got: dict, exp: dict) -> float:
+    """The largest of |got - exp| over |exp|'s max-abs, over the leaves
+    of two {path: tensor} maps (moved to ``exp``'s devices)."""
+    return max(((got[k].to(e.device) - e).abs().max()
+                / e.abs().max().clamp_min(1e-30)).item()
+               for k, e in exp.items())
 
 
 def train_card_vs_host(dev) -> None:
@@ -2667,37 +2719,42 @@ def train_card_vs_host(dev) -> None:
     from repro_torch.optim import constant, global_norm
     from repro_torch.train import make_train_step
     from repro_torch.tree import tree_map, unflatten
-    for arch in (ARCH, SSM_ARCH, RG_ARCH, MLP_ARCH):
+    for arch, layers in TRAIN_CHECKS:
         full = configs.get(arch)
-        cfg = full.replace(n_layers=len(full.layer_cycle))
+        cfg = full.replace(n_layers=layers or len(full.layer_cycle))
         _, loss_fn = make_train_step(cfg, constant(0.0))
-        host = lm.init_params(cfg, torch.Generator().manual_seed(11), "cpu",
-                              torch.float32)
-        card = tree_map(lambda t: t.to(dev), host)
+        # drawn on the card: the host's generator takes seconds a billion
+        card = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(11),
+                              dev, torch.float32)
+        host = tree_map(lambda t: t.cpu(), card)
         out = {}
         for where, params, d in (("host", host, torch.device("cpu")),
                                  ("card", card, dev)):
             t0 = time.perf_counter()
-            loss, grads = _value_and_grad(
+            loss, metrics, grads = _value_and_grad(
                 loss_fn, params, _device_batch(cfg, 64, 2, 11, d))
             norm = global_norm(unflatten(grads.items())).item()
-            out[where] = (loss.item(), norm,
+            out[where] = (loss.item(), metrics["aux"].item(), norm,
                           {k: g.cpu() for k, g in grads.items()},
                           time.perf_counter() - t0)
-        (hl, hn, hg, hs), (cl, cn, cg, cs) = out["host"], out["card"]
-        leaf_err = max(((cg[k] - hg[k]).abs().max()
-                        / hg[k].abs().max().clamp_min(1e-30)).item()
-                       for k in hg)
+        (hl, ha, hn, hg, hs), (cl, ca, cn, cg, cs) = out["host"], out["card"]
+        leaf_err = _leaf_err(cg, hg)
         row = {"arch": arch, "n_layers": cfg.n_layers,
                "params": sum(t.numel() for t in _leaves(host)),
                "loss_host": hl, "loss_card": cl,
                "loss_rel_err": abs(cl - hl) / abs(hl),
+               "aux_host": ha, "aux_card": ca,
+               "aux_rel_err": abs(ca - ha) / abs(ha) if ha else abs(ca),
                "grad_norm_host": hn, "grad_norm_card": cn,
                "grad_norm_rel_err": abs(cn - hn) / hn,
                "max_leaf_err_over_leaf_max": leaf_err,
                "host_seconds": hs, "card_seconds": cs}
         emit("train_card_vs_host", **row)
         check(row["loss_rel_err"] <= 1e-5, f"{arch}: loss {cl} vs {hl}")
+        check(row["aux_rel_err"] <= 1e-5, f"{arch}: aux {ca} vs {ha}")
+        check((ha > 0) == any(s.ffn == "moe" for s in cfg.layers()),
+              f"{arch}: aux {ha} with MoE layers "
+              f"{[s.ffn for s in cfg.layers()]}")
         check(row["grad_norm_rel_err"] <= 1e-4,
               f"{arch}: grad norm {cn} vs {hn}")
         check(leaf_err <= 1e-4, f"{arch}: a gradient leaf is {leaf_err} of "
@@ -2718,6 +2775,7 @@ def train_full_width(dev) -> None:
     """(b): each config at full depth and width in bf16 through the
     launcher."""
     import torch
+    from repro_torch import configs
     from repro_torch.core import H100_SXM
     from repro_torch.models import lm
     from repro_torch.tree import flatten
@@ -2741,8 +2799,12 @@ def train_full_width(dev) -> None:
         tokens = batch * seq
         losses = [h["loss"] for h in hist]
         row = {"arch": arch, "dtype": "bfloat16", "batch": batch,
-               "seq": seq, "steps": steps, "params": res["n_params"],
-               "losses": losses,
+               "seq": seq, "frontend_rows": res["cfg"].frontend_tokens
+               if res["cfg"].frontend else 0,
+               "layers": res["cfg"].n_layers,
+               "of_layers": configs.get(arch).n_layers, "steps": steps,
+               "params": res["n_params"], "losses": losses,
+               "aux_losses": [h["aux"] for h in hist],
                "grad_norms": [h["grad_norm"] for h in hist],
                "lrs": [h["lr"] for h in hist],
                "step_ms": [h["seconds"] * 1e3 for h in hist],
@@ -2761,6 +2823,10 @@ def train_full_width(dev) -> None:
         check(all(abs(x) < float("inf") for x in finite),
               f"{arch}: a loss or grad norm is not finite: {finite}")
         check(not still, f"{arch}: leaves did not move: {still}")
+        moe = any(s.ffn == "moe" for s in res["cfg"].layers())
+        check(all((a > 0) == moe and abs(a) < float("inf")
+                  for a in row["aux_losses"]),
+              f"{arch}: aux losses {row['aux_losses']} (MoE layers: {moe})")
         if arch == ARCH:
             first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
             check(last < first - 0.2,
@@ -2828,6 +2894,226 @@ def train_resume() -> None:
     check(all(row["plan_cache_hits"][1:]),
           f"plan cache hits {row['plan_cache_hits']}: the same shape was "
           "compiled again")
+
+
+def stage_devices(n_stages: int) -> list:
+    """The pipeline's stage devices: spread over the cards in order when
+    the machine has more than one, else all on the one card."""
+    import torch
+    n = min(torch.cuda.device_count(), n_stages)
+    return [torch.device("cuda", s * n // n_stages) for s in range(n_stages)]
+
+
+def _placement(devices) -> dict:
+    distinct = len(set(devices))
+    return {"stage_devices": [str(d) for d in devices],
+            "placement": ("distinct cards" if distinct == len(devices)
+                          else f"{len(devices)} stages on {distinct} "
+                          f"card{'s' if distinct > 1 else ''}")}
+
+
+def _sync(devices) -> None:
+    import torch
+    for d in set(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def _pipeline_grads(cfg, params, batch, devices, n_micro,
+                    join: bool = True) -> tuple:
+    """(loss, seconds, {path: gradient}) of the pipeline's loss over
+    ``devices``, the gradients joined back to the one-card layout or (not
+    ``join``) in the pipeline's."""
+    from repro_torch.train import (join_stage_params,
+                                   make_pipeline_train_step,
+                                   split_stage_params)
+    from repro_torch.tree import flatten, unflatten
+    split = split_stage_params(cfg, params, devices)
+    _, loss_fn = make_pipeline_train_step(cfg, devices,
+                                          n_microbatches=n_micro)
+    _sync(devices)
+    t0 = time.perf_counter()
+    loss, _, grads = _value_and_grad(loss_fn, split, batch)
+    _sync(devices)
+    seconds = time.perf_counter() - t0
+    if not join:
+        return loss.item(), seconds, grads
+    joined = join_stage_params(unflatten(grads.items()))
+    return loss.item(), seconds, dict(flatten(joined))
+
+
+def pipeline_vs_one_card(dev) -> None:
+    """(a): full TinyLlama in f32 through the pipeline in 2 and 11 stages
+    against the one-card train step."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.optim import constant
+    from repro_torch.train import make_train_step
+    cfg = configs.get(ARCH)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(13),
+                            dev, torch.float32)
+    batch = _device_batch(cfg, 256, 8, 13, dev)
+    _, loss_fn = make_train_step(cfg, constant(0.0))
+    t0 = time.perf_counter()
+    one_loss, _, one_grads = _value_and_grad(loss_fn, params, batch)
+    one_loss = one_loss.item()
+    one_s = time.perf_counter() - t0
+    for n_stages in PIPE_STAGES:
+        devices = stage_devices(n_stages)
+        loss, seconds, grads = _pipeline_grads(cfg, params, batch, devices,
+                                               PIPE_MICRO)
+        err = _leaf_err(grads, one_grads)
+        row = {"arch": ARCH, "dtype": "float32", "n_layers": cfg.n_layers,
+               "n_stages": n_stages, **_placement(devices),
+               "n_microbatches": PIPE_MICRO, "batch": 8, "seq": 256,
+               "loss_pipeline": loss, "loss_one_card": one_loss,
+               "loss_rel_err": abs(loss - one_loss) / abs(one_loss),
+               "max_leaf_err_over_leaf_max": err,
+               "pipeline_grad_seconds": seconds,
+               "one_card_grad_seconds": one_s}
+        emit("pipeline_vs_one_card", **row)
+        check(row["loss_rel_err"] <= 1e-5,
+              f"pipeline ({n_stages} stages): loss {loss} vs {one_loss}")
+        check(err <= 1e-4, f"pipeline ({n_stages} stages): a gradient leaf "
+              f"is {err} of its max-abs off the one-card step's")
+        del grads
+
+
+def pipeline_card_vs_host(dev) -> None:
+    """(b): mixtral cut to 2 layers in f32, 2 stages, on the card and on
+    the host CPU from the same weights and batch."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+    cfg = configs.get(MX_ARCH).replace(n_layers=2)
+    card = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(14),
+                          dev, torch.float32)
+    host = tree_map(lambda t: t.cpu(), card)
+    out = {}
+    for where, params, devices in (
+            ("card", card, stage_devices(2)),
+            ("host", host, [torch.device("cpu")] * 2)):
+        batch = _device_batch(cfg, 64, 4, 14, devices[0])
+        loss, seconds, grads = _pipeline_grads(cfg, params, batch, devices,
+                                               2, join=False)
+        out[where] = loss, seconds, {k: g.cpu() for k, g in grads.items()}
+        del grads
+    (cl, cs, cg), (hl, hs, hg) = out["card"], out["host"]
+    err = _leaf_err(cg, hg)
+    row = {"arch": MX_ARCH, "dtype": "float32", "n_layers": 2,
+           "of_layers": configs.get(MX_ARCH).n_layers, "n_stages": 2,
+           **_placement(stage_devices(2)), "n_microbatches": 2, "batch": 4,
+           "seq": 64, "params": sum(t.numel() for t in _leaves(host)),
+           "loss_card": cl, "loss_host": hl,
+           "loss_rel_err": abs(cl - hl) / abs(hl),
+           "max_leaf_err_over_leaf_max": err, "card_grad_seconds": cs,
+           "host_grad_seconds": hs}
+    emit("pipeline_card_vs_host", **row)
+    check(row["loss_rel_err"] <= 1e-5, f"{MX_ARCH} pipeline: loss {cl} on "
+          f"the card vs {hl} on the host")
+    check(err <= 1e-4, f"{MX_ARCH} pipeline: a gradient leaf is {err} of "
+          "its max-abs off the host's")
+
+
+def _median_step_ms(step_fn, params, opt, batch, devices, steps=3) -> tuple:
+    """(median ms of ``steps`` train steps after one warm-up step, their
+    losses); each step ends in a synchronise of every stage device."""
+    times, losses = [], []
+    for i in range(steps + 1):
+        _sync(devices)
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch, i)
+        loss = m["loss"].item()
+        _sync(devices)
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+    return sorted(times)[len(times) // 2], losses
+
+
+def pipeline_timing(dev) -> None:
+    """(c): bf16 TinyLlama train steps through the pipeline (2 stages) at
+    M = 4 and 8 beside the one-card step at the same batch."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.optim import constant, init_state
+    from repro_torch.train import (make_pipeline_train_step, make_train_step,
+                                   split_stage_params)
+    from repro_torch.tree import tree_map
+    cfg = configs.get(ARCH)
+    batch_size, seq = 8, 512
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(15),
+                            dev, torch.bfloat16)
+    batch = _device_batch(cfg, seq, batch_size, 15, dev)
+    devices = stage_devices(2)
+    # every run steps its own copy, so all three start from these weights
+    one = tree_map(torch.clone, params)
+    torch.cuda.reset_peak_memory_stats()
+    step_fn, _ = make_train_step(cfg, constant(1e-4))
+    one_ms, one_losses = _median_step_ms(step_fn, one, init_state(one),
+                                         batch, [dev])
+    one_peak = torch.cuda.max_memory_allocated()
+    del one
+    rows = {}
+    for micro in PIPE_TIMED_MICRO:
+        split = split_stage_params(cfg, params, devices)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step_fn, _ = make_pipeline_train_step(cfg, devices,
+                                              n_microbatches=micro,
+                                              lr_fn=constant(1e-4))
+        ms, losses = _median_step_ms(step_fn, split, init_state(split),
+                                     batch, devices)
+        del split
+        rows[micro] = {"median_step_ms": ms,
+                       "tokens_per_s": batch_size * seq / ms * 1e3,
+                       "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                       "losses": losses}
+    row = {"arch": ARCH, "dtype": "bfloat16", "batch": batch_size,
+           "seq": seq, "n_stages": 2, **_placement(devices),
+           "one_card": {"median_step_ms": one_ms,
+                        "tokens_per_s": batch_size * seq / one_ms * 1e3,
+                        "peak_memory_bytes": one_peak,
+                        "losses": one_losses},
+           "pipeline": rows,
+           "clock": "host, each step ended by a synchronise",
+           "note": ("stages on one card run the one-card step's work in M "
+                    "microbatches one after another: the step time over "
+                    "the one-card step's is the schedule's host cost, not "
+                    "an overlap across cards")
+           if len(set(devices)) == 1 else "stages on distinct cards"}
+    emit("pipeline_timing", **row)
+    finite = one_losses + [x for r in rows.values() for x in r["losses"]]
+    check(all(abs(x) < float("inf") for x in finite),
+          f"pipeline timing: a loss is not finite: {finite}")
+
+
+def phase_pipeline(dev) -> None:
+    """Phase pipeline, checks (a)-(c), with every launch counter zeroed
+    before it and read after it."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    pipeline_vs_one_card(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipeline_card_vs_host(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipeline_timing(dev)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    emit("pipeline", seconds=time.perf_counter() - t0, launches=launches,
+         cards=torch.cuda.device_count())
+    check(not any(launches.values()),
+          f"the pipeline launched kernels: {launches}")
 
 
 def phase_train(dev) -> None:
@@ -3031,7 +3317,10 @@ def main() -> int:
         t = done("serve+adapt", t)
         phase = "train"
         phase_train(dev)
-        done("train", t)
+        t = done("train", t)
+        phase = "pipeline"
+        phase_pipeline(dev)
+        done("pipeline", t)
         emit("wall", seconds=seconds,
              total_seconds=time.perf_counter() - t_start)
     except Exception as exc:  # report which phase failed, then fail

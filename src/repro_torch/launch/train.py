@@ -14,7 +14,9 @@ Usage (on the CUDA card; ``--device cpu`` runs on the CPU):
         --steps 20 --batch 8 --seq 512 --ckpt-dir ckpt --ckpt-every 10
 
 Weights are random, drawn from ``--seed`` with a ``torch.Generator`` on the
-training device; batches come from ``data.SyntheticLM`` with the same seed.
+training device; batches come from ``data.SyntheticLM`` with the same seed,
+with stub ``frontend_emb`` rows for a modality-frontend or enc-dec arch, as
+the reference's launcher asks for them.
 Parameters are float32 with ``--reduced`` and bfloat16 otherwise, as in the
 reference, unless ``--dtype`` says otherwise.  The plan sizes nothing on one
 card: it is printed, and its step time is the cost model's (datasheet
@@ -77,16 +79,24 @@ def main(argv=None) -> dict:
     ap.add_argument("--dtype", choices=sorted(DTYPES), default=None,
                     help="parameter type (default: float32 with --reduced, "
                          "else bfloat16)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="train the config cut to its first N layers, at "
+                         "full width (a depth cut, for a model whose "
+                         "training state does not fit the card)")
     args = ap.parse_args(argv)
     if args.data_mesh != 1 or args.model_mesh != 1 or args.multi_pod:
         raise NotImplementedError(
             "multi-device training is not ported yet (ROADMAP queue 1 item "
-            "9): run with --data-mesh 1 --model-mesh 1 and no --multi-pod")
+            "6; the pipeline over stage devices is "
+            "train.make_pipeline_train_step): run with --data-mesh 1 "
+            "--model-mesh 1 and no --multi-pod")
 
     device = resolve_device(args.device)
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = cfg.replace(n_layers=args.layers)
 
     # the paper's compiler pass, through the on-disk plan cache: a launch
     # of the same (config x shape x topology) reuses the stored artifact
@@ -119,7 +129,10 @@ def main(argv=None) -> dict:
 
     data = make_pipeline(
         DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                   global_batch=args.batch, seed=args.seed),
+                   global_batch=args.batch, seed=args.seed,
+                   frontend_tokens=cfg.frontend_tokens if cfg.frontend
+                   else 0,
+                   frontend_dim=cfg.frontend_dim if cfg.frontend else 0),
         start_step=start)
     telem, history = Telemetry(), []
     try:

@@ -696,9 +696,9 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, h, *,
                  cross_tables=None):
     """One layer (global or sliding-window attention, MLA, SSD or RG-LRU,
     then an enc-dec layer's cross attention, then its dense or MoE FFN);
-    returns the new residual.  ``moe_kw``: the MoE layer's
-    ``capacity_factor`` and ``lossless``; its aux loss is dropped (train
-    mode refuses MoE configs)."""
+    returns (the new residual, the MoE layer's router aux loss, or None
+    for a layer without one).  ``moe_kw``: the MoE layer's
+    ``capacity_factor``, ``n_groups`` and ``lossless``."""
     if spec.mixer in _STATE_MIXERS:
         layer = ssm.ssd_layer if spec.mixer == "ssd" else rglru.rglru_layer
         sc = cache[spec.mixer] if cache else None
@@ -727,11 +727,19 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, h, *,
         h = _cross_attend(cfg, p["xattn"], h, positions=positions,
                           cache=cache, enc_out=enc_out,
                           cross_tables=cross_tables, impl=impl)
+    aux = None
     if spec.ffn == "dense":
         h = blocks.ffn_layer(cfg, p["ffn"], h)
     elif spec.ffn == "moe":
-        h, _ = blocks.moe_layer(cfg, p["moe"], h, **(moe_kw or {}))
-    return h
+        h, aux = blocks.moe_layer(cfg, p["moe"], h, **(moe_kw or {}))
+    return h, aux
+
+
+def _add_aux(total, aux):
+    """The running aux total plus one more (None: no MoE layer yet)."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
 
 
 def _run_segment(cfg: ModelConfig, si: int, seg: Segment, seg_p: dict, h,
@@ -742,25 +750,31 @@ def _run_segment(cfg: ModelConfig, si: int, seg: Segment, seg_p: dict, h,
                  moe_kw: Optional[dict] = None, enc_out=None,
                  cross_tables=None):
     """The segment's first ``repeats`` repeats (default all) in order; the
-    others, and their cache rows, are left alone.  ``remat``: each repeat's
+    others, and their cache rows, are left alone.  Returns (h, the sum of
+    its MoE layers' aux losses or None).  ``remat``: each repeat's
     activations are recomputed in the backward pass instead of kept, as
     ``jax.checkpoint`` around the reference's scan body does."""
+    total = None
     for r in range(seg.repeats if repeats is None else repeats):
         def body(h, r=r):
+            aux = None
             for ci, spec in enumerate(seg.cycle):
                 lc = _index(seg_cache[f"c{ci}"], r) if seg_cache else None
-                h = _apply_layer(cfg, spec, _index(seg_p[f"c{ci}"], r), h,
-                                 positions=positions, cache=lc, impl=impl,
-                                 paged_tables=paged_tables,
-                                 window_tables=window_tables,
-                                 key=(si, ci, r), state_sink=state_sink,
-                                 valid_len=valid_len, moe_kw=moe_kw,
-                                 enc_out=enc_out, cross_tables=cross_tables)
-            return h
+                h, a = _apply_layer(cfg, spec, _index(seg_p[f"c{ci}"], r), h,
+                                    positions=positions, cache=lc, impl=impl,
+                                    paged_tables=paged_tables,
+                                    window_tables=window_tables,
+                                    key=(si, ci, r), state_sink=state_sink,
+                                    valid_len=valid_len, moe_kw=moe_kw,
+                                    enc_out=enc_out,
+                                    cross_tables=cross_tables)
+                aux = _add_aux(aux, a)
+            return h, aux
 
-        h = (checkpoint(body, h, use_reentrant=False,
-                        preserve_rng_state=False) if remat else body(h))
-    return h
+        h, aux = (checkpoint(body, h, use_reentrant=False,
+                             preserve_rng_state=False) if remat else body(h))
+        total = _add_aux(total, aux)
+    return h, total
 
 
 def forward(cfg: ModelConfig, params: dict,
@@ -777,9 +791,12 @@ def forward(cfg: ModelConfig, params: dict,
             valid_len: Optional[int] = None,
             remat: Optional[bool] = None,
             layer_cap: Optional[int] = None,
-            capacity_factor: float = 1.25,
+            n_groups: int = 1, capacity_factor: float = 1.25,
             moe_lossless: Optional[bool] = None) -> tuple:
-    """Returns (logits [B, S, padded_vocab], cache).
+    """Returns (logits [B, S, padded_vocab], cache, aux) in every mode:
+    ``aux`` is the f32 sum of the MoE layers' router aux losses (0 without
+    MoE layers), which serving discards and the train step adds to the
+    loss.
 
     tokens: [B, S] (decode: [B, 1]).  positions: [S] int32 absolute
     positions (default ``arange`` over the decoder sequence, a modality
@@ -817,20 +834,19 @@ def forward(cfg: ModelConfig, params: dict,
     self-speculative decoding.  The layers not run, and their cache rows,
     are left as they are.
 
-    MoE layers dispatch with ``capacity_factor`` per expert, or drop
-    nothing with ``moe_lossless`` (None: lossless in decode mode only, the
-    reference's default).  Serving passes ``moe_lossless=True`` everywhere,
-    as the reference's engines do: what a capacity drops depends on how
-    many rows share the pass, so a chunk or a bucket would change tokens.
+    MoE layers dispatch in ``n_groups`` groups with ``capacity_factor`` per
+    expert, or drop nothing with ``moe_lossless`` (None: lossless in decode
+    mode only, the reference's default).  Serving passes
+    ``moe_lossless=True`` everywhere, as the reference's engines do: what a
+    capacity drops depends on how many rows share the pass, so a chunk or a
+    bucket would change tokens.
 
     Train mode (``mode="train"``): no cache, positions ``arange(S)``, and
     ``impl="plain"`` only, since no kernel of this package or of the
     reference has a backward; the plain layers run under autograd.
     ``remat`` (train mode only; None means on) recomputes each segment
-    repeat's activations in the backward pass.  Returns (logits, None).
-    A config with MoE layers raises in train mode: the router's aux loss
-    is not ported to training yet, and training without it would be a
-    different objective."""
+    repeat's activations in the backward pass.  Returns (logits, None,
+    aux)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     train = mode == "train"
@@ -847,13 +863,10 @@ def forward(cfg: ModelConfig, params: dict,
     elif remat:
         raise ValueError("remat applies to train mode only")
     _check_supported(cfg)
-    if train and any(s.ffn == "moe" for s in cfg.layers()):
-        raise NotImplementedError(
-            f"{cfg.name}: training MoE layers is not ported yet (the "
-            "router aux loss has no training path)")
     if moe_lossless is None:
         moe_lossless = mode == "decode"
-    moe_kw = {"capacity_factor": capacity_factor, "lossless": moe_lossless}
+    moe_kw = {"capacity_factor": capacity_factor, "n_groups": n_groups,
+              "lossless": moe_lossless}
     decode = mode == "decode"
     enc_out = None
     if cfg.n_enc_layers and not decode:
@@ -882,6 +895,7 @@ def forward(cfg: ModelConfig, params: dict,
                      else torch.zeros((), dtype=torch.int32, device=h.device))
 
     remaining = None if layer_cap is None else max(int(layer_cap), 1)
+    aux_total = None
     for si, seg in enumerate(cfg.segments()):
         repeats = None
         if remaining is not None:
@@ -889,14 +903,15 @@ def forward(cfg: ModelConfig, params: dict,
             repeats = (min(seg.repeats, -(-remaining // clen))
                        if remaining > 0 else 0)
             remaining -= repeats * clen
-        h = _run_segment(cfg, si, seg, params[f"seg{si}"], h,
-                         positions=positions,
-                         seg_cache=cache[f"seg{si}"] if cache else None,
-                         impl=impl, paged_tables=paged_tables,
-                         window_tables=window_tables,
-                         state_sink=state_sink, valid_len=valid_len,
-                         remat=remat, repeats=repeats, moe_kw=moe_kw,
-                         enc_out=enc_out, cross_tables=cross_tables)
+        h, aux = _run_segment(cfg, si, seg, params[f"seg{si}"], h,
+                              positions=positions,
+                              seg_cache=cache[f"seg{si}"] if cache else None,
+                              impl=impl, paged_tables=paged_tables,
+                              window_tables=window_tables,
+                              state_sink=state_sink, valid_len=valid_len,
+                              remat=remat, repeats=repeats, moe_kw=moe_kw,
+                              enc_out=enc_out, cross_tables=cross_tables)
+        aux_total = _add_aux(aux_total, aux)
 
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
@@ -906,4 +921,6 @@ def forward(cfg: ModelConfig, params: dict,
         logits = logits.masked_fill(pad, -1e30)
     if cfg.final_logit_softcap:
         logits = softcap(logits.float(), cfg.final_logit_softcap).to(h.dtype)
-    return logits, cache
+    if aux_total is None:
+        aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    return logits, cache, aux_total

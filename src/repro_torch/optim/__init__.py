@@ -1,5 +1,6 @@
 """AdamW and learning-rate schedules: the port of ``repro.optim`` but
-``compression`` (multi-device, ROADMAP queue 1 item 9)."""
+``compression`` (``compressed_psum`` over a process group, ROADMAP queue 1
+item 6)."""
 
 from .adamw import (AdamWConfig, clip_by_global_norm, global_norm,
                     init_state, update)

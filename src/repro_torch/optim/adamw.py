@@ -42,9 +42,10 @@ def init_state(params: dict) -> dict:
 
 
 def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares, on
+    the first leaf's device (the leaves may lie on several)."""
     sums = [x.float().square().sum() for _, x in flatten(tree)]
-    return torch.stack(sums).sum().sqrt()
+    return torch.stack([s.to(sums[0].device) for s in sums]).sum().sqrt()
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -69,8 +70,9 @@ def _decay_mask(path: tuple) -> bool:
 def update(params: dict, grads: dict, state: dict, lr,
            cfg: AdamWConfig = AdamWConfig()) -> tuple:
     """One AdamW step, in place on ``params`` and ``state``.  ``lr`` is a
-    float or an f32 scalar tensor.  Returns (params, state, {"grad_norm",
-    "lr"})."""
+    float or an f32 scalar tensor.  The leaves may lie on several devices
+    (a pipeline's stages), each with its moments on its own device.
+    Returns (params, state, {"grad_norm", "lr"})."""
     gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.clip_norm)
     state["step"] += 1
@@ -80,16 +82,21 @@ def update(params: dict, grads: dict, state: dict, lr,
     lr = torch.as_tensor(lr, dtype=torch.float32)
     grad_leaves = dict(flatten(grads))
     m_leaves, v_leaves = dict(flatten(state["m"])), dict(flatten(state["v"]))
+    scalars: dict = {}
     for path, p in flatten(params):
-        g = grad_leaves[path].float() * scale
+        if p.device not in scalars:   # the step's scalars on p's device
+            scalars[p.device] = [t.to(p.device)
+                                 for t in (scale, b1c, b2c, lr)]
+        scale_p, b1c_p, b2c_p, lr_p = scalars[p.device]
+        g = grad_leaves[path].float() * scale_p
         m, v = m_leaves[path], v_leaves[path]
         m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
         v.mul_(cfg.b2).add_(g * (1 - cfg.b2) * g)
         del g
-        den = (v / b2c).sqrt_().add_(cfg.eps)
-        upd = (m / b1c).div_(den)
+        den = (v / b2c_p).sqrt_().add_(cfg.eps)
+        upd = (m / b1c_p).div_(den)
         del den
         if cfg.weight_decay and p.dim() >= 2 and _decay_mask(path):
             upd.add_(cfg.weight_decay * p.float())
-        p.copy_(p.float().sub_(upd.mul_(lr)))
+        p.copy_(p.float().sub_(upd.mul_(lr_p)))
     return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -113,10 +113,10 @@ def make_prefill_step(cfg: ModelConfig, impl: str = "kernel"):
     frontend_dim] for a modality-frontend or enc-dec arch."""
     def prefill_step(params, cache, tokens, frontend_emb=None,
                      sample_args=None):
-        logits, cache = lm.forward(cfg, params, tokens, cache=cache,
-                                   frontend_emb=frontend_emb,
-                                   mode="prefill", impl=impl,
-                                   moe_lossless=True)
+        logits, cache, _ = lm.forward(cfg, params, tokens, cache=cache,
+                                      frontend_emb=frontend_emb,
+                                      mode="prefill", impl=impl,
+                                      moe_lossless=True)
         return _pick_token(logits[:, -1, :cfg.vocab_size], sample_args), \
             cache
     return prefill_step
@@ -126,9 +126,9 @@ def make_serve_step(cfg: ModelConfig, impl: str = "kernel"):
     """decode(params, cache, tokens [B, 1], pos 0-d, sample_args=None) ->
     (next_tok, cache)."""
     def serve_step(params, cache, tokens, pos, sample_args=None):
-        logits, cache = lm.forward(cfg, params, tokens, positions=pos,
-                                   cache=cache, mode="decode", impl=impl,
-                                   moe_lossless=True)
+        logits, cache, _ = lm.forward(cfg, params, tokens, positions=pos,
+                                      cache=cache, mode="decode", impl=impl,
+                                      moe_lossless=True)
         return _pick_token(logits[:, -1, :cfg.vocab_size], sample_args), \
             cache
     return serve_step
@@ -148,10 +148,11 @@ def make_bucketed_prefill_step(cfg: ModelConfig, impl: str = "kernel"):
 
     def prefill_step(params, cache, tokens, true_len, frontend_emb=None,
                      sample_args=None):
-        logits, cache = lm.forward(cfg, params, tokens, cache=cache,
-                                   frontend_emb=frontend_emb,
-                                   mode="prefill", impl=impl,
-                                   valid_len=true_len + F, moe_lossless=True)
+        logits, cache, _ = lm.forward(cfg, params, tokens, cache=cache,
+                                      frontend_emb=frontend_emb,
+                                      mode="prefill", impl=impl,
+                                      valid_len=true_len + F,
+                                      moe_lossless=True)
         tok = _pick_token(logits[:, F + true_len - 1, :cfg.vocab_size],
                           sample_args)
         return tok, lm.mask_cache_positions(cache, true_len + F)
@@ -184,7 +185,7 @@ def make_chunk_prefill_step(cfg: ModelConfig, chunk: int,
                    valid, sample_args=None):
         positions = start + torch.arange(chunk, dtype=torch.int32,
                                          device=piece.device)
-        logits, _ = lm.forward(
+        logits, _, _ = lm.forward(
             cfg, params, None if embeds else piece,
             input_embeds=piece if embeds else None, positions=positions,
             cache=lm.lane_view(cfg, caches, slot), mode="prefill",
@@ -223,14 +224,14 @@ def make_paged_decode_step(cfg: ModelConfig, impl: str = "kernel"):
         def freeze(key, new):
             lm.freeze_state_lanes(cfg, caches, {key: new}, active)
 
-        logits, caches = lm.forward(cfg, params, toks[:, None],
-                                    positions=pos, cache=caches,
-                                    mode="decode", impl=impl,
-                                    moe_lossless=True,
-                                    paged_tables=tables.get("global"),
-                                    window_tables=tables.get("window"),
-                                    cross_tables=tables.get("cross"),
-                                    state_sink=freeze)
+        logits, caches, _ = lm.forward(cfg, params, toks[:, None],
+                                       positions=pos, cache=caches,
+                                       mode="decode", impl=impl,
+                                       moe_lossless=True,
+                                       paged_tables=tables.get("global"),
+                                       window_tables=tables.get("window"),
+                                       cross_tables=tables.get("cross"),
+                                       state_sink=freeze)
         row = logits[:, -1, :cfg.vocab_size]
         if sample_args is None:
             return row.argmax(dim=-1).to(torch.int32), caches
@@ -257,7 +258,7 @@ def make_draft_decode_step(cfg: ModelConfig, draft_layers: int,
     port's round draws its drafts' noise at once and skips the sampler on
     a greedy lane)."""
     def draft_step(params, caches, tok, pos, rows, slot):
-        logits, _ = lm.forward(
+        logits, _, _ = lm.forward(
             cfg, params, tok.reshape(1, 1), positions=pos.reshape(1),
             cache=lm.lane_view(cfg, caches, slot), mode="decode", impl=impl,
             moe_lossless=True, layer_cap=draft_layers, **_lane_tables(rows))
@@ -285,7 +286,7 @@ def make_verify_step(cfg: ModelConfig, width: int, impl: str = "kernel"):
                                          device=toks.device)
         embeds = (lm.embed_tokens(cfg, params, toks)[None] if use_embeds
                   else None)
-        logits, _ = lm.forward(
+        logits, _, _ = lm.forward(
             cfg, params, None if use_embeds else toks[None],
             input_embeds=embeds, positions=positions,
             cache=lm.lane_view(cfg, caches, slot), mode="prefill",

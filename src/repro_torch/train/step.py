@@ -6,8 +6,10 @@ the port of ``repro.train.step``.
 ``loss_fn`` with autograd through the plain layers (``impl="plain"``, the
 counterpart of the reference's ``"chunked"``: no kernel of either package
 has a backward) and updates ``params`` and ``opt_state`` in place
-(``optim.adamw.update``).  The reference's ``shard_fn`` and
-``grad_constraint`` are multi-device and wait for ROADMAP queue 1 item 9.
+(``optim.adamw.update``).  The loss is the reference's: the cross entropy
+of the token rows (a modality-frontend arch's projected rows dropped) plus
+the MoE layers' router aux losses.  The reference's ``shard_fn`` and
+``grad_constraint`` are multi-device and wait for ROADMAP queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 @dataclass(frozen=True)
 class TrainStepConfig:
     impl: str = "plain"
+    n_groups: int = 1              # MoE dispatch groups
+    capacity_factor: float = 1.25  # MoE capacity per expert
     grad_accum: int = 1
     remat: Optional[bool] = None   # per-repeat rematerialisation; None = on
     adamw: AdamWConfig = field(default_factory=AdamWConfig)
@@ -61,33 +65,43 @@ def _requiring_grad(leaves: list):
             t.requires_grad_(flag)
 
 
-def value_and_grad(loss_fn: Callable, params: dict, batch: dict) -> tuple:
+def value_and_grad(loss_fn: Callable, params: dict, batch: dict, *,
+                   allow_unused: bool = False) -> tuple:
     """(loss, metrics, gradients) of ``loss_fn(params, batch)``; the
     gradients are a list in ``flatten(params)`` order, each in its
-    parameter's dtype.  The parameters' ``requires_grad`` flags are as
-    they were after the call."""
+    parameter's dtype.  A leaf the loss never reads raises, or with
+    ``allow_unused`` gets a zero gradient, as under ``jax.value_and_grad``
+    (the pipeline's loss reads no frontend projection).  The parameters'
+    ``requires_grad`` flags are as they were after the call."""
     leaves = [t for _, t in flatten(params)]
     with torch.enable_grad(), _requiring_grad(leaves):
         loss, metrics = loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=allow_unused,
+                                    materialize_grads=allow_unused)
     return loss.detach(), metrics, grads
 
 
 def make_train_step(cfg: ModelConfig, lr_fn: Callable,
                     tcfg: TrainStepConfig = TrainStepConfig()):
+    F = cfg.prepended_rows
+
     def loss_fn(params: dict, batch: dict) -> tuple:
-        logits, _ = lm.forward(cfg, params, batch["tokens"], mode="train",
-                               impl=tcfg.impl, remat=tcfg.remat)
-        ce = cross_entropy(logits, batch["labels"])
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
-        return ce + aux, {"ce": ce.detach(), "aux": aux}
+        logits, _, aux = lm.forward(
+            cfg, params, batch["tokens"],
+            frontend_emb=batch.get("frontend_emb"), mode="train",
+            impl=tcfg.impl, remat=tcfg.remat, n_groups=tcfg.n_groups,
+            capacity_factor=tcfg.capacity_factor)
+        ce = cross_entropy(logits[:, F:] if F else logits, batch["labels"])
+        return ce + aux, {"ce": ce.detach(), "aux": aux.detach()}
 
     def train_step(params: dict, opt_state: dict, batch: dict,
                    step) -> tuple:
         """One step, in place on ``params`` and ``opt_state``; returns
         (params, opt_state, metrics).  ``batch``: {"tokens", "labels"}
-        [B, S] int tensors on the parameters' device.  With ``grad_accum``
-        n > 1 the batch splits into n contiguous microbatches whose f32
+        [B, S] int tensors on the parameters' device, and for a frontend
+        or enc-dec arch "frontend_emb" [B, F, frontend_dim].  With
+        ``grad_accum`` n > 1 the batch (each of its tensors along its
+        first dim) splits into n contiguous microbatches whose f32
         gradients are summed, divided by n and cast to each parameter's
         dtype; the loss is the mean over microbatches and the other
         metrics are the last microbatch's, as in the reference's scan."""

@@ -156,12 +156,12 @@ def test_logits_match_reference(setup, arch):
                                 mode="prefill")
     cache = lm.init_cache(cfg, 2, kv, torch.float32, "cpu")
     with torch.no_grad():
-        tl, cache = lm.forward(cfg, tp, torch.from_numpy(toks),
-                               frontend_emb=torch.from_numpy(fe),
-                               cache=cache, mode="prefill")
-        plain, _ = lm.forward(cfg, tp, torch.from_numpy(toks),
-                              frontend_emb=torch.from_numpy(fe),
-                              mode="prefill", impl="plain")
+        tl, cache, _ = lm.forward(cfg, tp, torch.from_numpy(toks),
+                                  frontend_emb=torch.from_numpy(fe),
+                                  cache=cache, mode="prefill")
+        plain, _, _ = lm.forward(cfg, tp, torch.from_numpy(toks),
+                                 frontend_emb=torch.from_numpy(fe),
+                                 mode="prefill", impl="plain")
     assert tl.shape == (2, F + 9, cfg.padded_vocab)
     _close(tl, jl, LOGIT_TOL, "prefill")
     _close(plain, tl, LOGIT_TOL, "plain route")
@@ -178,19 +178,19 @@ def test_logits_match_reference(setup, arch):
                                     positions=jnp.asarray(pos, jnp.int32),
                                     cache=jcache, mode="decode")
         with torch.no_grad():
-            tl, cache = lm.forward(cfg, tp, tt[:, None],
-                                   positions=torch.tensor(
-                                       pos, dtype=torch.int32),
-                                   cache=cache, mode="decode")
+            tl, cache, _ = lm.forward(cfg, tp, tt[:, None],
+                                      positions=torch.tensor(
+                                          pos, dtype=torch.int32),
+                                      cache=cache, mode="decode")
         _close(tl, jl, LOGIT_TOL, f"decode {step}")
         jt = jnp.argmax(jl[:, -1], axis=-1).astype(jnp.int32)
         tt = tl[:, -1].argmax(dim=-1).to(torch.int32)
         assert tt.tolist() == np.asarray(jt).tolist()
     jtrain, _, _ = jlm.forward(jcfg, jp, jnp.asarray(toks),
                                frontend_emb=jnp.asarray(fe), mode="train")
-    ttrain, _ = lm.forward(cfg, tp, torch.from_numpy(toks),
-                           frontend_emb=torch.from_numpy(fe), mode="train",
-                           impl="plain")
+    ttrain, _, _ = lm.forward(cfg, tp, torch.from_numpy(toks),
+                              frontend_emb=torch.from_numpy(fe), mode="train",
+                              impl="plain")
     _close(ttrain.detach(), jtrain, LOGIT_TOL, "train")
 
 

@@ -281,15 +281,15 @@ def test_model_logits_match_reference_in_prefill_and_decode(model):
                                 cache=jcache, mode="prefill")
     tcache = lm.init_cache(cfg, 1, KV_LEN, torch.float32, "cpu")
     with torch.no_grad():
-        tl, tcache = lm.forward(cfg, tp, torch.from_numpy(toks[:, :10]),
-                                cache=tcache, mode="prefill")
+        tl, tcache, _ = lm.forward(cfg, tp, torch.from_numpy(toks[:, :10]),
+                                   cache=tcache, mode="prefill")
         assert _err(tl, jl) < LOGIT_TOL
         for t in range(10, 14):
             jl, jcache, _ = jlm.forward(
                 jcfg, jp, jnp.asarray(toks[:, t:t + 1]),
                 positions=jnp.asarray(t, jnp.int32), cache=jcache,
                 mode="decode")
-            tl, tcache = lm.forward(
+            tl, tcache, _ = lm.forward(
                 cfg, tp, torch.from_numpy(toks[:, t:t + 1]),
                 positions=torch.tensor(t, dtype=torch.int32), cache=tcache,
                 mode="decode")

@@ -11,8 +11,9 @@ they must be equal, not close: they are held against the reference's own
 routing arithmetic (``repro.models.blocks.moe_layer``, lines of its body
 run here on the reference's arrays).  Covers ``init_moe``'s tree, lossless
 and dropping capacity, one and two dispatch groups, ``lm.forward``'s
-``moe_lossless`` default, the f32 router leaf through ``convert``, and
-train mode's refusal of MoE configs.
+``moe_lossless`` default and its aux total, and the f32 router leaf
+through ``convert``.  Training through MoE layers is held to the
+reference's train step in ``test_torch_train_moe_frontend.py``.
 """
 
 import jax
@@ -184,18 +185,11 @@ def test_forward_moe_capacity_matches_reference(model, lossless):
     jcfg, cfg, jp, tp = model
     toks = np.random.default_rng(4).integers(
         0, cfg.vocab_size, (2, 24)).astype(np.int32)
-    jl, _, _ = jlm.forward(jcfg, jp, jnp.asarray(toks), mode="prefill",
-                           moe_lossless=lossless)
+    jl, _, jaux = jlm.forward(jcfg, jp, jnp.asarray(toks), mode="prefill",
+                              moe_lossless=lossless)
     with torch.no_grad():
-        tl, _ = lm.forward(cfg, tp, torch.from_numpy(toks), mode="prefill",
-                           moe_lossless=lossless)
+        tl, _, aux = lm.forward(cfg, tp, torch.from_numpy(toks),
+                                mode="prefill", moe_lossless=lossless)
     assert _err(tl, jl) < 1e-4
-
-
-def test_train_mode_refuses_moe(model):
-    _, cfg, _, tp = model
-    toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="aux loss"):
-        lm.forward(cfg, tp, toks, mode="train", impl="plain")
-    dense = configs.get("tinyllama-1.1b").reduced()
-    assert all(s.ffn != "moe" for s in dense.layers())
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    assert abs(aux.item() - float(jaux)) < TOL

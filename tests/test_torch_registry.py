@@ -167,18 +167,18 @@ def test_logits_match_jax(setup, arch):
     tcache = lm.init_cache(cfg, 2, KV_LEN, torch.float32, "cpu")
     jl, jcache, _ = jlm.forward(jcfg, jp, jnp.asarray(toks), cache=jcache,
                                 mode="prefill")
-    tl, tcache = lm.forward(cfg, tp, torch.from_numpy(toks), cache=tcache,
-                            mode="prefill")
+    tl, tcache, _ = lm.forward(cfg, tp, torch.from_numpy(toks), cache=tcache,
+                               mode="prefill")
     assert np.abs(tl.numpy() - np.asarray(jl)).max() < TOL
     for pos in (45, 46, 47):
         nxt = rng.integers(0, cfg.vocab_size, (2, 1)).astype(np.int32)
         jl, jcache, _ = jlm.forward(jcfg, jp, jnp.asarray(nxt),
                                     positions=jnp.asarray(pos, jnp.int32),
                                     cache=jcache, mode="decode")
-        tl, tcache = lm.forward(cfg, tp, torch.from_numpy(nxt),
-                                positions=torch.tensor(pos,
-                                                       dtype=torch.int32),
-                                cache=tcache, mode="decode")
+        tl, tcache, _ = lm.forward(cfg, tp, torch.from_numpy(nxt),
+                                   positions=torch.tensor(pos,
+                                                          dtype=torch.int32),
+                                   cache=tcache, mode="decode")
         assert np.abs(tl.numpy() - np.asarray(jl)).max() < TOL, pos
     if cfg.final_logit_softcap:
         assert tl.abs().max() < cfg.final_logit_softcap

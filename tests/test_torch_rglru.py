@@ -180,8 +180,8 @@ def test_model_logits_match_jax_in_prefill_and_decode(model, S):
     assert tcache["seg0"]["c2"]["attn"]["k"].shape[2] == 32
     jl, jcache, _ = jlm.forward(jcfg, jp, jnp.asarray(toks), cache=jcache,
                                 mode="prefill")
-    tl, tcache = lm.forward(cfg, tp, torch.from_numpy(toks), cache=tcache,
-                            mode="prefill")
+    tl, tcache, _ = lm.forward(cfg, tp, torch.from_numpy(toks), cache=tcache,
+                               mode="prefill")
     assert _err(tl, jl) < TOL
     for t in range(4):
         nxt = rng.integers(0, cfg.vocab_size, (2, 1)).astype(np.int32)
@@ -189,10 +189,10 @@ def test_model_logits_match_jax_in_prefill_and_decode(model, S):
         jl, jcache, _ = jlm.forward(jcfg, jp, jnp.asarray(nxt),
                                     positions=jnp.asarray(pos, jnp.int32),
                                     cache=jcache, mode="decode")
-        tl, tcache = lm.forward(cfg, tp, torch.from_numpy(nxt),
-                                positions=torch.tensor(pos,
-                                                       dtype=torch.int32),
-                                cache=tcache, mode="decode")
+        tl, tcache, _ = lm.forward(cfg, tp, torch.from_numpy(nxt),
+                                   positions=torch.tensor(pos,
+                                                          dtype=torch.int32),
+                                   cache=tcache, mode="decode")
         assert _err(tl, jl) < TOL
     for key in ("conv", "state"):
         assert _err(tcache["seg0"]["c0"]["rglru"][key],
@@ -204,5 +204,5 @@ def test_model_logits_match_jax_in_prefill_and_decode(model, S):
     jl, _, _ = jlm.forward(jcfg, jp, jnp.asarray(toks), mode="train",
                            remat=False)
     for impl in ("kernel", "plain"):
-        tl, _ = lm.forward(cfg, tp, torch.from_numpy(toks), impl=impl)
+        tl, _, _ = lm.forward(cfg, tp, torch.from_numpy(toks), impl=impl)
         assert _err(tl, jl) < TOL

@@ -162,8 +162,8 @@ def test_forward_logits_match_jax(changes):
     tcache = lm.init_cache(cfg, 2, 32, torch.float32, "cpu")
     jl, jcache, _ = jlm.forward(jcfg, jp, jnp.asarray(toks), cache=jcache,
                                 mode="prefill")
-    tl, tcache = lm.forward(cfg, tp, torch.from_numpy(toks), cache=tcache,
-                            mode="prefill")
+    tl, tcache, _ = lm.forward(cfg, tp, torch.from_numpy(toks), cache=tcache,
+                               mode="prefill")
     assert np.abs(tl.numpy() - np.asarray(jl)).max() < 1e-4
     if cfg.padded_vocab != cfg.vocab_size:
         assert (tl[..., cfg.vocab_size:] == -1e30).all()
@@ -171,9 +171,9 @@ def test_forward_logits_match_jax(changes):
     jl, _, _ = jlm.forward(jcfg, jp, jnp.asarray(nxt),
                            positions=jnp.asarray(13, jnp.int32),
                            cache=jcache, mode="decode")
-    tl, _ = lm.forward(cfg, tp, torch.from_numpy(nxt),
-                       positions=torch.tensor(13, dtype=torch.int32),
-                       cache=tcache, mode="decode")
+    tl, _, _ = lm.forward(cfg, tp, torch.from_numpy(nxt),
+                          positions=torch.tensor(13, dtype=torch.int32),
+                          cache=tcache, mode="decode")
     assert np.abs(tl.numpy() - np.asarray(jl)).max() < 1e-4
 
 

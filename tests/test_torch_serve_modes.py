@@ -222,10 +222,10 @@ def test_bucketed_prefill_step_matches_jax(setup, arch, n):
                                                n)
     assert ttok.tolist() == np.asarray(jtok).tolist()
     _close_trees(tc, jc)
-    tl, _ = lm.forward(cfg, tp, torch.from_numpy(toks),
-                       cache=lm.init_cache(cfg, 1, KV_LEN, torch.float32,
-                                           "cpu"),
-                       mode="prefill", valid_len=n)
+    tl, _, _ = lm.forward(cfg, tp, torch.from_numpy(toks),
+                          cache=lm.init_cache(cfg, 1, KV_LEN, torch.float32,
+                                              "cpu"),
+                          mode="prefill", valid_len=n)
     np.testing.assert_allclose(tl[:, :n].numpy(), np.asarray(jl)[:, :n],
                                atol=TOL, rtol=TOL)
 

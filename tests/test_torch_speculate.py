@@ -163,15 +163,15 @@ def test_layer_cap_matches_the_reference(setup, arch, cap):
     tcache = lm.init_cache(cfg, 1, 32, torch.float32, "cpu")
     jl, jcache, _ = jlm.forward(jcfg, jp, jnp.asarray(toks[:, :8]),
                                 cache=jcache, mode="prefill", layer_cap=cap)
-    tl, tcache = lm.forward(cfg, tp, torch.from_numpy(toks[:, :8]),
-                            cache=tcache, mode="prefill", layer_cap=cap)
+    tl, tcache, _ = lm.forward(cfg, tp, torch.from_numpy(toks[:, :8]),
+                               cache=tcache, mode="prefill", layer_cap=cap)
     assert np.abs(tl.numpy() - np.asarray(jl)).max() < 1e-4
     jl, jcache, _ = jlm.forward(jcfg, jp, jnp.asarray(toks[:, 8:]),
                                 positions=jnp.asarray(8, jnp.int32),
                                 cache=jcache, mode="decode", layer_cap=cap)
-    tl, tcache = lm.forward(cfg, tp, torch.from_numpy(toks[:, 8:]),
-                            positions=torch.tensor(8, dtype=torch.int32),
-                            cache=tcache, mode="decode", layer_cap=cap)
+    tl, tcache, _ = lm.forward(cfg, tp, torch.from_numpy(toks[:, 8:]),
+                               positions=torch.tensor(8, dtype=torch.int32),
+                               cache=tcache, mode="decode", layer_cap=cap)
     assert np.abs(tl.numpy() - np.asarray(jl)).max() < 1e-4
     fresh = lm.init_cache(cfg, 1, 32, torch.float32, "cpu")
     remaining = cap

@@ -164,8 +164,8 @@ def test_model_logits_match_jax_in_prefill_and_decode(model):
     tcache = lm.init_cache(cfg, 2, 32, torch.float32, "cpu")
     jl, jcache, _ = jlm.forward(jcfg, jp, jnp.asarray(toks), cache=jcache,
                                 mode="prefill")
-    tl, tcache = lm.forward(cfg, tp, torch.from_numpy(toks), cache=tcache,
-                            mode="prefill")
+    tl, tcache, _ = lm.forward(cfg, tp, torch.from_numpy(toks), cache=tcache,
+                               mode="prefill")
     assert _err(tl, jl) < TOL
     for t in range(3):
         nxt = rng.integers(0, cfg.vocab_size, (2, 1)).astype(np.int32)
@@ -173,15 +173,15 @@ def test_model_logits_match_jax_in_prefill_and_decode(model):
         jl, jcache, _ = jlm.forward(jcfg, jp, jnp.asarray(nxt),
                                     positions=jnp.asarray(pos, jnp.int32),
                                     cache=jcache, mode="decode")
-        tl, tcache = lm.forward(cfg, tp, torch.from_numpy(nxt),
-                                positions=torch.tensor(pos,
-                                                       dtype=torch.int32),
-                                cache=tcache, mode="decode")
+        tl, tcache, _ = lm.forward(cfg, tp, torch.from_numpy(nxt),
+                                   positions=torch.tensor(pos,
+                                                          dtype=torch.int32),
+                                   cache=tcache, mode="decode")
         assert _err(tl, jl) < TOL
     assert _err(tcache["seg0"]["c0"]["ssd"]["state"],
                 jcache["seg0"]["c0"]["ssd"]["state"]) < TOL
     # no cache (the reference's train-mode forward) agrees as well
     jl, _, _ = jlm.forward(jcfg, jp, jnp.asarray(toks), mode="train",
                            remat=False, impl="pallas")
-    tl, _ = lm.forward(cfg, tp, torch.from_numpy(toks))
+    tl, _, _ = lm.forward(cfg, tp, torch.from_numpy(toks))
     assert _err(tl, jl) < TOL
